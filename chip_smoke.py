@@ -23,6 +23,22 @@ Phases, any failure of which exits non-zero:
    zeroed just before each mode's steps and read just after. Then one
    profiled step per mode, and K1 against its plain version on the val
    step's own clouds.
+6. K2 kernel: the EMD loss kernel against its plain version and a
+   float64 run on every pair: at the train step's (32, 2304, 2304) on
+   random masked clouds and on masked clouds drawn apart (the
+   well-conditioned case), and at small odd shapes (cost, the four
+   gradient accumulators, the assembled gradients per pair); a finite
+   gradient for identical clouds; its time beside its bound.
+7. train reference: two train steps of a tiny float32 configuration with
+   the 'emd' loss on the card against the same steps on the CPU: the
+   first step's gradients, the losses, the decoder batch statistics.
+8. main path train: the production configuration at train batch 1 with
+   Adam (staircase exponential decay) and the EMA, through
+   ``make_train_step``, with the production loss_config and with the
+   'emd' loss on the local xyz maps: one warm-up step, launch counts
+   zeroed, five timed steps, counts read; then one profiled step each,
+   and K2 against its plain version and float64 on the clouds of a
+   train-mode forward of the 'emd' run.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -44,9 +60,25 @@ from monopsr_torch.models import monopsr
 from monopsr_torch.models.monopsr_net import NetConfig
 from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
+from monopsr_torch.train import optimizer as opt_lib
+from monopsr_torch.train import trainer
 
 EVAL_BATCH = 4     # configs/monopsr_model_000.yaml train_config.eval_batch
+TRAIN_BATCH = 1    # configs/monopsr_model_000.yaml train_config.batch_size
 STEPS = 5          # timed steps per mode
+
+TRAIN_CONFIG = {   # configs/monopsr_model_000.yaml train_config.optimizer
+    'optimizer': {
+        'optimizer_type': 'adam_optimizer',
+        'adam_optimizer': {
+            'learning_rate_type': 'exponential_decay',
+            'initial_learning_rate': 0.00008,
+            'decay_steps': 10000,
+            'decay_factor': 0.8,
+            'staircase': True,
+            'use_moving_average': True,
+            'moving_average_decay': 0.9999,
+        }}}
 
 LOSS_CONFIG = {   # configs/monopsr_model_000.yaml model_config.loss_config
     'inst_xyz_map_local': ['smooth_l1_nonzero', 100.0],
@@ -62,9 +94,14 @@ LOSS_CONFIG = {   # configs/monopsr_model_000.yaml model_config.loss_config
     'inst_depth_map_global': ['smooth_l1_nonzero', 10.0],
 }
 
+# The same with the approximate-EMD loss on the local xyz maps (a loss
+# type the reference's loss builder accepts; the weight only scales it)
+EMD_LOSS_CONFIG = dict(LOSS_CONFIG, inst_xyz_map_local=['emd', 1.0])
+
 # Kernel-name substrings that group the profile (first match wins)
 KERNEL_GROUPS = (
     ('emd_kernel', ('emd_cost_fused',)),
+    ('emd_loss', ('emd_loss',)),
     ('convolution', ('fprop', 'dgrad', 'conv', 'cudnn', 'implicit_gemm')),
     ('matmul', ('gemm', 'cutlass', 'cublas')),
     ('gather/scatter', ('index', 'gather', 'scatter')),
@@ -215,17 +252,21 @@ def time_cuda(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def emd_bound_ms(b, n, m, sm_count, sm_clock_mhz):
-    """Least time for metric-mode EMD on this card: the larger of the
-    bytes it must move over the memory rate and its operations over the
-    peak rate of their unit. Per element (b*n*m of them): 10 exps (rounds
-    with a nonzero level) and 11 sqrts on the special-function units (16
-    results per clock per SM on Hopper), and ~129 float32 operations
-    (distance once, ~11 per round) at 67 TFLOP/s."""
+def emd_bound_ms(b, n, m, sm_count, sm_clock_mhz, fp32_per_element,
+                 out_floats):
+    """Least time for an EMD kernel's work on this card: the larger of
+    the bytes it must move (both clouds in, ``out_floats`` float32 out)
+    over the memory rate and its operations over the peak rate of their
+    unit. Per element (b*n*m of them): 10 exps (rounds with a nonzero
+    level) and 11 square roots or rsqrts on the special-function units
+    (16 results per clock per SM on Hopper), and ``fp32_per_element``
+    float32 operations at 67 TFLOP/s: ~129 for the metric (distance
+    once, ~11 per round), ~230 for the loss (~9 more per round for the
+    gradient accumulators)."""
     elems = float(b) * n * m
-    bytes_ms = (4.0 * b * (n + m) * 3 + 4.0 * b) / 3.35e12 * 1e3
+    bytes_ms = (4.0 * b * (n + m) * 3 + 4.0 * out_floats) / 3.35e12 * 1e3
     sfu_ms = elems * 21 / (16.0 * sm_count * sm_clock_mhz * 1e6) * 1e3
-    fp32_ms = elems * 129 / 67e12 * 1e3
+    fp32_ms = elems * fp32_per_element / 67e12 * 1e3
     return max(bytes_ms, sfu_ms, fp32_ms), (
         'bytes' if bytes_ms >= max(sfu_ms, fp32_ms) else 'operations')
 
@@ -434,6 +475,401 @@ def main_path(seed):
     return report
 
 
+def loss_clouds(gen, b, n, m, keep, gap=0.0):
+    """Clouds on the card as the JAX package's loss-kernel tests draw
+    them (tests/test_ops.py:313-317); with keep < 1 (n == m) both are
+    zeroed outside one random mask, as the 'emd' loss masks the maps (a
+    share 1 - keep of exact zero points). With gap > 0 the two clouds
+    are drawn apart instead, around (+gap, 0, 0) and (-gap, 0, 0) with
+    spread 0.25: no point has a near neighbour in the other cloud or
+    near the masked points at the origin."""
+    if gap > 0:
+        shift = torch.tensor([gap, 0.0, 0.0], device='cuda')
+        xyz1 = torch.randn(b, n, 3, generator=gen, device='cuda') * 0.25 + shift
+        xyz2 = torch.randn(b, m, 3, generator=gen, device='cuda') * 0.25 - shift
+    else:
+        xyz1 = torch.randn(b, n, 3, generator=gen, device='cuda')
+        xyz2 = torch.randn(b, m, 3, generator=gen, device='cuda') * 0.6 + 0.1
+    if keep < 1.0 and n == m:
+        mask = (torch.rand(b, n, 1, generator=gen, device='cuda')
+                < keep).float()
+        xyz1, xyz2 = xyz1 * mask, xyz2 * mask
+    return xyz1.contiguous(), xyz2.contiguous()
+
+
+def assemble(xyz1, xyz2, acc):
+    """The gradients of sum(cost) from K2's accumulators, as its
+    backward assembles them."""
+    _, grow, gcol, gx2t, gx1t = acc
+    return (xyz1 * grow[..., None] - gx2t.transpose(1, 2),
+            xyz2 * gcol[..., None] - gx1t.transpose(1, 2))
+
+
+def floored_points(xyz1, xyz2, batch_chunk=4):
+    """(B, N) and (B, M) masks of the points whose squared distance to
+    some point of the other cloud is at or under K2's floor of 1e-20
+    (masked slots at the origin): W = plan * 1e10 on such pairs."""
+    rows, cols = [], []
+    for i in range(0, xyz1.shape[0], batch_chunk):
+        pinned = emd_ops._sq_dists(xyz1[i:i + batch_chunk],
+                                   xyz2[i:i + batch_chunk]) \
+            <= emd_ops._DIST_FLOOR
+        rows.append(pinned.any(2))
+        cols.append(pinned.any(1))
+    return torch.cat(rows), torch.cat(cols)
+
+
+def accumulator_errors(got, want, rows, cols):
+    """Per accumulator (grow, gcol, gx2t, gx1t): max |got - want| /
+    max |want| over the points with no floored partner, and for the
+    floored points max |got - want| over max |want| of all points. The
+    1e10 terms make a floored point's grow and gcol the largest values;
+    normalised by them, an error on every other point would pass."""
+    errs = []
+    for g, w, floored in zip(got[1:], want[1:], (rows, cols, rows, cols)):
+        if g.dim() == 3:
+            floored = floored[:, None, :].expand_as(g)
+        diff, scale = (g - w).abs(), w.abs()
+        err = 0.0
+        if bool((~floored).any()):
+            err = float(diff[~floored].max() /
+                        scale[~floored].max().clamp(min=1e-30))
+        if bool(floored.any()):
+            err = max(err, float(diff[floored].max() /
+                                 scale.max().clamp(min=1e-30)))
+        errs.append(err)
+    return errs
+
+
+def pair_errors(got, want):
+    """Per cloud pair, the worse of the two clouds' gradients: max |got -
+    want| / max |want|, and ||got - want|| / ||want|| (L2)."""
+    worst, l2 = [], []
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        worst.append((g - w).abs().amax(dim=(1, 2)) /
+                     w.abs().amax(dim=(1, 2)).clamp(min=1e-30))
+        l2.append((g - w).norm(dim=(1, 2)) /
+                  w.norm(dim=(1, 2)).clamp(min=1e-30))
+    return torch.stack(worst).amax(0), torch.stack(l2).amax(0)
+
+
+def float64_gradients(xyz1, xyz2, batch_chunk=4):
+    """The assembled gradients from a float64 run of K2's arithmetic
+    (the plain version's, in float64) on every pair."""
+    x1, x2 = xyz1.double(), xyz2.double()
+    parts = [assemble(x1[i:i + batch_chunk], x2[i:i + batch_chunk],
+                      emd_ops._emd_loss_accumulators_chunk(
+                          x1[i:i + batch_chunk], x2[i:i + batch_chunk]))
+             for i in range(0, x1.shape[0], batch_chunk)]
+    return tuple(torch.cat(side) for side in zip(*parts))
+
+
+def compare_k2(label, xyz1, xyz2, cost_rtol, conditioned):
+    """K2 against its plain version (the same arithmetic in the same
+    order, through (pairs, n, m) matrices), both against a float64 run
+    on every pair. Fails unless: the cost is within ``cost_rtol``; each
+    accumulator within 5e-3 (accumulator_errors; tests/test_ops.py:352);
+    and the assembled gradients, per pair, within 2e-2 of their largest
+    component of both the plain and the float64 version
+    (tests/test_ops.py:379) when ``conditioned``, else within 2e-2 of the
+    float64 version in L2 norm (see kernel_phase_k2)."""
+    b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+    got = emd_ops.emd_loss_accumulators(xyz1, xyz2)
+    want = emd_ops.emd_loss_plain_accumulators(xyz1, xyz2, batch_chunk=8)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in got):
+        fail('K2 gave non-finite outputs for {} {}'.format(label, (b, n, m)))
+    cost_abs, cost_rel = rel_err(got[0], want[0])
+    rows, cols = floored_points(xyz1, xyz2)
+    acc = accumulator_errors(got, want, rows, cols)
+    grads, grads_plain = assemble(xyz1, xyz2, got), assemble(xyz1, xyz2,
+                                                             want)
+    grads_ref = float64_gradients(xyz1, xyz2)
+    to_plain, _ = pair_errors(grads, grads_plain)
+    to_ref, to_ref_l2 = pair_errors(grads, grads_ref)
+    plain_to_ref, plain_to_ref_l2 = pair_errors(grads_plain, grads_ref)
+    r = dict(shape=(b, n, m), xyz1=xyz1, xyz2=xyz2, max_abs_err=cost_abs,
+             max_rel_err=cost_rel, acc_max_rel_err=max(acc),
+             grad_max_rel_err=float(to_plain.max()),
+             grad_vs_float64=float(to_ref.max()),
+             grad_vs_float64_l2=float(to_ref_l2.max()),
+             plain_grad_vs_float64=float(plain_to_ref.max()),
+             plain_grad_vs_float64_l2=float(plain_to_ref_l2.max()))
+    print('kernel emd_loss {} {}: cost max_rel_err={:.3e}; accumulators '
+          '(grow, gcol, gx2t, gx1t) max_rel_err={}; floored points {:.2f}; '
+          'gradients per pair, worst of {}: kernel vs plain {:.3e}, vs '
+          'float64 {:.3e} (L2 {:.3e}); plain vs float64 {:.3e} (L2 {:.3e})'
+          .format(label, (b, n, m), cost_rel,
+                  ['{:.2e}'.format(x) for x in acc],
+                  float(rows.float().mean()), b, r['grad_max_rel_err'],
+                  r['grad_vs_float64'], r['grad_vs_float64_l2'],
+                  r['plain_grad_vs_float64'], r['plain_grad_vs_float64_l2']))
+    if cost_rel > cost_rtol or max(acc) >= 5e-3:
+        fail('K2 disagrees with its plain version for {} {}'.format(
+            label, (b, n, m)))
+    if (max(r['grad_max_rel_err'], r['grad_vs_float64']) > 2e-2
+            if conditioned else r['grad_vs_float64_l2'] > 2e-2):
+        fail('K2 gradients out of bounds for {} {}'.format(label, (b, n, m)))
+    return r
+
+
+def kernel_phase_k2(seed):
+    """K2 at the train step's (32, 2304, 2304) and at small odd shapes.
+    Tolerances (compare_k2), as the JAX package holds its loss kernel:
+    cost 1e-3 relative (K1's bound), each accumulator 5e-3, the assembled
+    gradients 2e-2 of their largest component per pair.
+
+    That bound presumes a well-conditioned plan, and at 2304 random
+    points per cloud the plan is not: exp(level * d) at levels down to
+    -65536 turns an ulp of d into a relative change of the weight, the
+    masked points leave float32 residues of their capacity that leak to
+    real points near the origin, and a column close to saturation turns
+    such a small absolute change into a large relative one for every
+    row it dominates. The gradient, xyz1 * rowsum W - W xyz2 with W =
+    plan / |p - q|, then moves by a large share of its largest component
+    on a few pairs, in any float32 version: on the random masked clouds
+    the plain one lies 4e-2 from float64 on one CPU pair
+    (tests/test_torch_emd_loss.py::
+    test_float32_gradient_conditioning_at_train_size) and up to 0.19 on
+    the card's 32 pairs. There each pair's gradients are held to
+    float64 in L2 norm (2e-2) and their largest-component distances are
+    printed. The well-conditioned cases hold the full bound: the small
+    shapes, and the train step's shape with 40% masked points on clouds
+    drawn apart, whose points all lie away from the other cloud and from
+    the origin (float32 within ~1e-5 of float64 there). A kernel that
+    drops the last round's row-side sums, or only their grow, is 0.1-0.2
+    off there; one that skips a column fails the accumulators."""
+    gen = torch.Generator(device='cuda').manual_seed(seed + 2)
+    cases = [('train step, masked', 32, 2304, 2304, 0.6, 0.0, False),
+             ('train step, masked, drawn apart', 32, 2304, 2304, 0.6, 2.5,
+              True),
+             ('rectangular', 2, 256, 128, 1.0, 0.0, True),
+             ('odd, int factors differ', 1, 60, 52, 1.0, 0.0, True)]
+    results = []
+    for label, b, n, m, keep, gap, conditioned in cases:
+        xyz1, xyz2 = loss_clouds(gen, b, n, m, keep, gap)
+        results.append(compare_k2(label, xyz1, xyz2, 1e-3, conditioned))
+
+    # Identical clouds: the matched pairs coincide; the gradient through
+    # the autograd wrapper stays finite (the 1e-20 floor)
+    x = torch.randn(1, 128, 3, generator=gen, device='cuda').requires_grad_()
+    cost = emd_ops.emd_distance(x, x.detach().clone())
+    cost.sum().backward()
+    if not bool(torch.isfinite(x.grad).all()):
+        fail('K2 gradient not finite for identical clouds')
+    print('kernel emd_loss identical clouds (1, 128, 128): cost {:.3e}, '
+          'gradient finite, max |grad| {:.3e}'.format(
+              float(cost.detach()), float(x.grad.abs().max())))
+
+    prod, apart = results[0], results[1]
+    x1, x2 = prod['xyz1'], prod['xyz2']
+    ms = time_cuda(lambda: emd_ops.emd_loss_accumulators(x1, x2), reps=5)
+    plain_ms = time_cuda(lambda: emd_ops.emd_loss_plain_accumulators(
+        x1, x2, batch_chunk=8), reps=2)
+    prod['apart_grad_max_rel_err'] = max(apart['grad_max_rel_err'],
+                                         apart['grad_vs_float64'])
+    return prod, ms, plain_ms
+
+
+def tiny_train_config():
+    return NetConfig(num_boxes=4, image_input_shape=(96, 320),
+                     resized_full_img_shape=(48, 160),
+                     proposal_fc_sizes=(64, 64), regression_fc_sizes=(64, 64),
+                     resnet='resnet_tiny', compute_dtype='float32')
+
+
+class GradientRecorder:
+    """An optimizer that keeps a CPU copy of the raw gradients of each
+    update, then hands them to the wrapped one."""
+
+    def __init__(self, tx):
+        self.tx, self.grads = tx, []
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state):
+        self.grads.append({k: v.detach().cpu().clone()
+                           for k, v in grads.items()})
+        return self.tx.update(grads, state)
+
+
+def gradient_errors(got, want):
+    """(||got - want|| / ||want|| over all leaves, the worst leaf's max
+    |got - want| over its allowance 2e-2 max|want leaf| + 1e-5 max|want|),
+    the bounds of tests/test_torch_train_grads.py::check_gradients."""
+    gmax = max(float(w.abs().max()) for w in want.values())
+    num = sum(float(((got[k] - w) ** 2).sum()) for k, w in want.items())
+    den = sum(float((w ** 2).sum()) for w in want.values())
+    leaf = max(float((got[k] - w).abs().max()) /
+               (2e-2 * float(w.abs().max()) + 1e-5 * gmax)
+               for k, w in want.items())
+    return (num / den) ** 0.5, leaf
+
+
+def train_reference(seed):
+    """Two train steps of a tiny float32 configuration with the 'emd' loss
+    on the card against the same steps on the CPU, from the same weights
+    and batch of 2 images. The first step's gradients, as the step hands
+    them to the optimizer, are held as tests/test_torch_train_grads.py
+    holds the port's against the JAX package's: within 5e-3 in L2 norm
+    over all leaves, each leaf within 2e-2 of its largest component plus
+    1e-5 of the largest of any leaf (the backbone's backward moves by a
+    few 1e-3 on some leaves for an ulp of change at the ReLU kinks).
+    Losses and decoder batch statistics: the same float32 math (TF32 off)
+    summed in other orders, and K2 against the CPU's plan path: rtol
+    1e-3, atol 1e-3 * max|x|. Parameters and the EMA are only a smoke
+    check, atol 4 lr: an Adam step moves each parameter by about lr
+    whatever its gradient."""
+    cfg = tiny_train_config()
+    batch = synthetic_batch(seed + 3, cfg, 2, (96, 320), (96, 320))
+    lr = TRAIN_CONFIG['optimizer']['adam_optimizer']['initial_learning_rate']
+    runs = []
+    for device in ('cpu', 'cuda'):
+        net = monopsr.create_net(cfg, device='cpu', seed=seed)
+        tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+        tx = GradientRecorder(tx)
+        step = trainer.make_train_step(net, cfg, EMD_LOSS_CONFIG, tx,
+                                       use_ema, decay, device=device)
+        state = trainer.create_train_state(net, tx, use_ema)
+        losses = []
+        for _ in range(2):
+            state, step_losses = step(state, batch)
+            losses.append({k: v.cpu() for k, v in step_losses.items()})
+        runs.append(dict(
+            losses=losses, grads=tx.grads[0],
+            params={k: v.detach().cpu() for k, v in state.params.items()},
+            ema={k: v.cpu() for k, v in state.ema_params.items()},
+            stats={k: v.cpu() for k, v in state.batch_stats.items()
+                   if 'map_decoder' in k and 'num_batches' not in k}))
+    want, got = runs
+    worst = 0.0
+
+    def check(what, g, w, atol):
+        nonlocal worst
+        excess = float(((g - w).abs() - 1e-3 * w.abs()).max())
+        worst = max(worst, excess / atol)
+        if not bool(torch.isfinite(g).all()) or excess > atol:
+            fail('train reference mismatch in {}: max |diff| {:.3e}'.format(
+                what, float((g - w).abs().max())))
+
+    grad_l2, grad_leaf = gradient_errors(got['grads'], want['grads'])
+    if not all(bool(torch.isfinite(g).all()) for g in got['grads'].values()) \
+            or grad_l2 >= 5e-3 or grad_leaf > 1.0:
+        fail('train reference: first-step gradients differ, L2 {:.3e}, '
+             'worst leaf {:.3f} of its allowance'.format(grad_l2, grad_leaf))
+    for i, (g_losses, w_losses) in enumerate(zip(got['losses'],
+                                                 want['losses'])):
+        for key, w in w_losses.items():
+            check('step {} {}'.format(i, key), g_losses[key], w,
+                  1e-3 * max(1.0, float(w.abs().max())))
+    for part in ('params', 'ema'):
+        for key, w in want[part].items():
+            check('{} {}'.format(part, key), got[part][key], w, 4 * lr)
+    for key, w in want['stats'].items():
+        check('batch stats ' + key, got['stats'][key], w,
+              1e-3 * float(w.abs().max()))
+    print('train reference (tiny config, emd loss, 2 steps, card vs CPU): '
+          'ok; first-step gradients L2 {:.3e} (bound 5e-3), worst leaf '
+          '{:.3f} of its allowance; losses, stats, params, EMA worst {:.3f} '
+          'of tolerance; total_loss {}'.format(
+              grad_l2, grad_leaf, worst,
+              [round(float(x['total_loss']), 3) for x in got['losses']]))
+
+
+def train_clouds_check(net, cfg, batch):
+    """K2 against its plain version and a float64 run on the very clouds
+    the next 'emd'-loss train step hands it: the masked predicted and GT
+    local xyz maps from a train-mode forward of the batch (the decoder's
+    batch statistics are put back after it). Both clouds lie within a
+    few metres of the origin, with 40% masked points, the regime of the
+    random masked clouds of kernel_phase_k2: the gradients are held to
+    float64 in L2 norm per pair. The cost within 5e-3 relative, the JAX
+    package's bound for its kernel at this shape (tests/test_ops.py:307),
+    as K1 is held on its own clouds; the accumulators within 5e-3."""
+    saved = {k: v.clone() for k, v in net.named_buffers()}
+    with torch.no_grad():
+        dev = evaluator.batch_to_device(batch, 'cuda')
+        outputs = net(**monopsr.net_inputs_from_batch(dev))
+        gt = monopsr.build_gt_dict(cfg, dev, outputs)
+        valid = gt[C.KEY_VALID_MASK_MAPS]
+        pts = [(maps * valid).reshape(-1, valid.shape[2] * valid.shape[3], 3)
+               .float().contiguous()
+               for maps in (outputs[C.KEY_INST_XYZ_MAP_LOCAL],
+                            gt[C.KEY_INST_XYZ_MAP_LOCAL])]
+        for k, v in net.named_buffers():
+            v.copy_(saved[k])
+    print('train step\'s own clouds {}: valid points {:.2f}, max |p| {:.1f}, '
+          'max |q| {:.1f}'.format(tuple(pts[0].shape), float(valid.mean()),
+                                  float(pts[0].norm(dim=-1).max()),
+                                  float(pts[1].norm(dim=-1).max())))
+    return compare_k2('on the train step\'s own clouds', *pts, 5e-3, False)
+
+
+def main_path_train(seed):
+    """The production net's train step at train batch 1 in both loss
+    configurations; K2 must run once per EMD-loss step and never for the
+    production loss, K1 never."""
+    cfg = production_config()
+    batch = synthetic_batch(seed, cfg, TRAIN_BATCH, (375, 1242),
+                            C.DEPTH_PAD_SHAPE)
+    report = {}
+    for name, loss_config, want_k2 in (
+            ('production loss', LOSS_CONFIG, 0),
+            ('emd loss', EMD_LOSS_CONFIG, STEPS)):
+        net = monopsr.create_net(cfg, device='cuda', seed=seed)
+        tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+        step = trainer.make_train_step(net, cfg, loss_config, tx, use_ema,
+                                       decay, device='cuda')
+        state = trainer.create_train_state(net, tx, use_ema)
+        start = {k: v.detach().clone() for k, v in state.params.items()}
+        ema_start = {k: v.clone() for k, v in state.ema_params.items()}
+        state, _ = step(state, batch)                # warm-up (cuDNN plans)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        emd_ops.emd_distance.launches = 0
+        emd_ops.emd_cost_fused.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, losses = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STEPS * 1e3
+        k2 = emd_ops.emd_distance.launches
+        k1 = emd_ops.emd_cost_fused.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        for key, value in losses.items():
+            if not bool(torch.isfinite(value).all()):
+                fail('train {}: loss {} not finite'.format(name, key))
+        moved = sum(int((state.params[k] != v).any()) for k, v in
+                    start.items())
+        ema_moved = sum(int((state.ema_params[k] != v).any()) for k, v in
+                        ema_start.items())
+        if k2 != want_k2 or k1 != 0:
+            fail('train {}: emd_loss launched {} times (want {}), '
+                 'emd_cost_fused {} times in {} steps'.format(
+                     name, k2, want_k2, k1, STEPS))
+        if not moved or not ema_moved:
+            fail('train {}: parameters or EMA did not change'.format(name))
+        print('main path train, {}: {:.3f} ms/step over {} steps (train '
+              'batch {}), peak {:.2f} GB, emd_loss launches {}, '
+              'emd_cost_fused launches {}; losses finite (total {:.3f}, '
+              'inst_xyz_map_local {:.3f}); {} of {} parameter tensors and '
+              '{} EMA tensors changed'.format(
+                  name, ms, STEPS, TRAIN_BATCH, peak_gb, k2, k1,
+                  float(losses['total_loss']),
+                  float(losses['inst_xyz_map_local']), moved, len(start),
+                  ema_moved))
+        profile_step(lambda b: step(state, b), batch)
+        report[name] = dict(ms=ms, launches=k2, peak_gb=peak_gb)
+        if want_k2:
+            report['clouds'] = train_clouds_check(net, cfg, batch)
+        del net, state, step, start, ema_start
+        torch.cuda.empty_cache()
+    return report
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -470,10 +906,17 @@ def main():
     prod, ms, plain_ms = kernel_phase(args.seed)
     slice_reference(args.seed)
     report = main_path(args.seed)
+    prod2, ms2, plain_ms2 = kernel_phase_k2(args.seed)
+    train_reference(args.seed)
+    train_report = main_path_train(args.seed)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
-                                      sm_clock)
+                                      sm_clock, 129, b)
+    b2, n2, m2 = prod2['shape']
+    bound2_ms, bound2_by = emd_bound_ms(
+        b2, n2, m2, props.multi_processor_count, sm_clock, 230,
+        b2 * (1 + 4 * (n2 + m2)))
     kernels = [{
         'name': 'emd_cost_fused',
         'route': 'cuda',
@@ -489,10 +932,38 @@ def main():
         'bound_by': bound_by,
         'library_ms': None,
         'shape': [b, n, m],
+    }, {
+        'name': 'emd_loss',
+        'route': 'cuda',
+        'source': 'monopsr_torch/csrc/emd_loss.cu',
+        'replaces': 'monopsr_tpu/ops/emd.py:425',
+        'launches': train_report['emd loss']['launches'],
+        'max_abs_err': prod2['max_abs_err'],
+        'max_rel_err': prod2['max_rel_err'],
+        'accumulators_max_rel_err': prod2['acc_max_rel_err'],
+        'gradients_max_rel_err': prod2['grad_max_rel_err'],
+        'gradients_vs_float64': prod2['grad_vs_float64'],
+        'gradients_vs_float64_l2': prod2['grad_vs_float64_l2'],
+        'plain_gradients_vs_float64': prod2['plain_grad_vs_float64'],
+        'plain_gradients_vs_float64_l2': prod2['plain_grad_vs_float64_l2'],
+        'apart_gradients_max_rel_err': prod2['apart_grad_max_rel_err'],
+        'main_path_clouds_max_rel_err': train_report['clouds']['max_rel_err'],
+        'main_path_clouds_gradients_vs_float64_l2':
+            train_report['clouds']['grad_vs_float64_l2'],
+        'ms': ms2,
+        'plain_ms': plain_ms2,
+        'bound_ms': bound2_ms,
+        'bound_by': bound2_by,
+        'library_ms': None,
+        'shape': [b2, n2, m2],
     }]
     print('eval step ms/step: val {:.3f} test {:.3f} (eval batch {}, {})'
           .format(report['val']['ms'], report['test']['ms'], EVAL_BATCH,
                   card))
+    print('train step ms/step: production loss {:.3f}, emd loss {:.3f} '
+          '(train batch {}, {})'.format(
+              train_report['production loss']['ms'],
+              train_report['emd loss']['ms'], TRAIN_BATCH, card))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -26,12 +26,45 @@ def _nhwc(x):
     return x.permute(0, 2, 3, 1)
 
 
+class DecoderBatchNorm(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.997, epsilon=1e-5)`` on NCHW input.
+
+    Eval mode normalizes with the running statistics. Train mode follows
+    flax 0.12 (``use_fast_variance=True``), not torch: the batch mean and
+    the BIASED variance mean(x^2) - mean(x)^2 (clamped at 0), both in
+    float32, normalize the batch, with the gradient flowing through
+    them; the running statistics become 0.997 * old + 0.003 * batch.
+    (``nn.BatchNorm2d`` itself would update ``running_var`` with the
+    unbiased variance.) The output is float32; the caller casts.
+    """
+
+    def __init__(self, features):
+        super().__init__(features, eps=1e-5, momentum=0.003)
+
+    def forward(self, x):
+        x = x.float()
+        if not self.training:
+            return super().forward(x)
+        axes = (0, 2, 3)
+        mean = x.mean(axes)
+        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(0.997 * self.running_mean +
+                                    (1.0 - 0.997) * mean)
+            self.running_var.copy_(0.997 * self.running_var +
+                                   (1.0 - 0.997) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None] +
+                self.bias[:, None, None])
+
+
 class MapDecoder(nn.Module):
     """resize -> 2x conv3x3(256) BN -> resize -> 2x conv3x3(128) BN.
 
     The batch norms follow the module's train/eval mode like flax's
-    ``use_running_average=not train``; they normalize in float32 and
-    cast back to the compute dtype, as flax does.
+    ``use_running_average=not train`` (``DecoderBatchNorm``); they
+    normalize in float32 and cast back to the compute dtype, as flax
+    does.
     """
 
     def __init__(self, in_channels=512, map_roi_size=(48, 48),
@@ -44,9 +77,7 @@ class MapDecoder(nn.Module):
             for i in range(2):
                 name = 'conv{}_{}'.format(stage, i + 1)
                 self.add_module(name, Conv2d(channels, width, 3, padding=1))
-                # flax momentum 0.997 == torch momentum 0.003
-                self.add_module(name + '_bn', nn.BatchNorm2d(
-                    width, eps=1e-5, momentum=0.003))
+                self.add_module(name + '_bn', DecoderBatchNorm(width))
                 channels = width
 
     def _stage(self, x, stage):
@@ -54,7 +85,7 @@ class MapDecoder(nn.Module):
         for i in range(2):
             name = 'conv{}_{}'.format(stage, i + 1)
             x = getattr(self, name)(x)
-            x = getattr(self, name + '_bn')(x.float()).to(self.dtype)
+            x = getattr(self, name + '_bn')(x).to(self.dtype)
             x = F.relu(x)
         return _nhwc(x)
 

@@ -4,17 +4,18 @@ Counterpart of ``monopsr_tpu/models/losses.py``. The JAX eval and train
 steps vmap the losses over samples; here the sample axis is written
 out as the leading axis S of every argument, and the losses that reduce
 to a scalar per sample (``smooth_l1_nonzero``, ``berHu``,
-``chamfer_dist``) return one value per sample, shape (S,). Elementwise
-and per-row losses keep their shapes.
+``chamfer_dist``, ``emd``) return one value per sample, shape (S,).
+Elementwise and per-row losses keep their shapes.
 
 Loss-type strings in the YAML loss_config resolve through
-``apply_loss``. The ``'emd'`` loss needs the EMD loss kernel K2 and its
-gradient, which are not ported yet (ROADMAP K2).
+``apply_loss``. The ``'emd'`` loss makes one ``emd_distance`` call over
+all S * N map pairs: one launch of the EMD loss kernel K2 on CUDA.
 """
 
 import torch
 
 from monopsr_torch.ops import chamfer as chamfer_ops
+from monopsr_torch.ops import emd as emd_ops
 
 
 def _sum_per_sample(x):
@@ -106,9 +107,12 @@ def chamfer_loss(pred_maps, target_maps, weights):
 
 
 def emd_loss(pred_maps, target_maps, weights):
-    raise NotImplementedError(
-        "The 'emd' loss needs the EMD loss kernel with its gradient "
-        '(ROADMAP K2), which is not ported yet')
+    """Approximate EMD over masked (S, N, H, W, 3) maps, averaged over
+    the N maps of each sample: (S,)."""
+    s, n = pred_maps.shape[0], pred_maps.shape[1]
+    pred = (pred_maps * weights).reshape(s * n, -1, 3).float()
+    target = (target_maps * weights).reshape(s * n, -1, 3).float()
+    return emd_ops.emd_distance(pred, target).reshape(s, n).mean(1)
 
 
 def apply_loss(loss_config_entry, pred, target, mask):

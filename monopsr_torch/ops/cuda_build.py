@@ -19,6 +19,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Kernel name -> source under the package
 SOURCES = {
     'emd_cost_fused': os.path.join('csrc', 'emd_cost_fused.cu'),
+    'emd_loss': os.path.join('csrc', 'emd_loss.cu'),
 }
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

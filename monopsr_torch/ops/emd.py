@@ -1,6 +1,6 @@
 """Approximate Earth Mover's Distance (auction-style approxmatch).
 
-Counterpart of ``monopsr_tpu/ops/emd.py``, forward half. The algorithm
+Counterpart of ``monopsr_tpu/ops/emd.py``. The algorithm
 computes an approximate transport plan between two point clouds by 11
 rounds (j = 8..-2) of temperature-annealed row/column normalization with
 saturation bookkeeping, then the cost sum(match * |p - q|).
@@ -12,8 +12,19 @@ saturation bookkeeping, then the cost sum(match * |p - q|).
 - ``emd_cost_fused_plain``: plain PyTorch transcription of the JAX
   package's ``_emd_cost_fused_single``, chunked over the batch. It serves
   the CPU and the on-card comparison with the kernel.
-- ``approx_match`` / ``match_cost``: plan and cost through a plan
-  (forward only; the loss path with its gradient comes with training).
+- ``approx_match`` / ``match_cost``: plan and cost through a plan;
+  ``match_cost`` carries the gradient to both clouds through the fixed
+  plan (the JAX package's custom VJP, with its 1e-20 distance floor).
+- ``emd_distance``: the differentiable EMD of the ``'emd'`` loss. On a
+  CUDA tensor it launches the hand-written kernel K2
+  (``csrc/emd_loss.cu``, the counterpart of the TPU kernel
+  ``_emd_loss_kernel``), which computes the cost and the four plan
+  contractions the backward needs in one sweep; on a CPU tensor it runs
+  ``match_cost(approx_match(...))``.
+- ``emd_loss_accumulators``: K2's outputs (the cost and the four
+  contractions) without the autograd wrapper; ``emd_loss_plain_accumulators``
+  is their plain PyTorch version, in the kernel's order of arithmetic,
+  for the CPU and the on-card comparison.
 - ``np_approx_match`` / ``np_match_cost``: float64 NumPy oracle.
 """
 
@@ -92,10 +103,55 @@ def approx_match(xyz1, xyz2, batch_chunk=4):
                     batch_chunk)
 
 
-def match_cost(xyz1, xyz2, match):
-    """EMD cost through a fixed transport plan: (B,). Forward only."""
-    d = torch.sqrt(_sq_dists(xyz1.float(), xyz2.float()))
-    return (match * d).sum(dim=(1, 2))
+# Floor of the squared distance under the rsqrt of W = plan / |p - q|:
+# a NORMAL float32, so coincident points (masked slots at the origin)
+# give a large finite W and never 0 * inf
+_DIST_FLOOR = 1e-20
+
+
+def _match_cost_grads(xyz1, xyz2, match):
+    """Gradient of sum(match * |p - q|) for one chunk, in matmul form:
+    with W = match / sqrt(max(d, 1e-20)),
+        grad1 = xyz1 * rowsum W - W @ xyz2
+        grad2 = xyz2 * colsum W - W^T @ xyz1."""
+    w = match / torch.sqrt(_sq_dists(xyz1, xyz2).clamp(min=_DIST_FLOOR))
+    grad1 = xyz1 * w.sum(2, keepdim=True) - torch.bmm(w, xyz2)
+    grad2 = xyz2 * w.sum(1)[..., None] - torch.bmm(w.transpose(1, 2), xyz1)
+    return grad1, grad2
+
+
+class _MatchCost(torch.autograd.Function):
+    """sum(match * |p - q|) per pair; the plan carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz1, xyz2, match, batch_chunk):
+        ctx.save_for_backward(xyz1, xyz2, match)
+        ctx.batch_chunk = batch_chunk
+        step = batch_chunk
+        return torch.cat([
+            (match[i:i + step] * torch.sqrt(_sq_dists(
+                xyz1[i:i + step], xyz2[i:i + step]))).sum(dim=(1, 2))
+            for i in range(0, xyz1.shape[0], step)])
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz1, xyz2, match = ctx.saved_tensors
+        step = ctx.batch_chunk
+        grads = [_match_cost_grads(xyz1[i:i + step], xyz2[i:i + step],
+                                   match[i:i + step])
+                 for i in range(0, xyz1.shape[0], step)]
+        g = g[:, None, None]
+        grad1 = torch.cat([a for a, _ in grads]) * g
+        grad2 = torch.cat([b for _, b in grads]) * g
+        return grad1, grad2, None, None
+
+
+def match_cost(xyz1, xyz2, match, batch_chunk=4):
+    """EMD cost through a fixed transport plan: (B,). The gradient flows
+    to both clouds (``batch_chunk`` pairs' (N, M) matrices at a time in
+    the backward) but not to the plan."""
+    return _MatchCost.apply(xyz1.float(), xyz2.float(), match.detach(),
+                            batch_chunk)
 
 
 def _emd_cost_fused_chunk(xyz1, xyz2):
@@ -119,41 +175,70 @@ def emd_cost_fused_plain(xyz1, xyz2, batch_chunk=4):
                     batch_chunk)
 
 
-def _kernel_lib():
-    lib = cuda_build.load('emd_cost_fused')
-    lib.emd_cost_fused_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.emd_cost_fused_launch.restype = ctypes.c_int
-    lib.emd_cost_fused_error_string.argtypes = [ctypes.c_int]
-    lib.emd_cost_fused_error_string.restype = ctypes.c_char_p
-    return lib
+def _check_clouds(name, xyz1, xyz2):
+    """Raises unless xyz1, xyz2 are float32 (B, N, 3), (B, M, 3) clouds on
+    one device."""
+    if xyz1.dim() != 3 or xyz1.shape[2] != 3 or xyz2.dim() != 3 or \
+            xyz2.shape[2] != 3 or xyz1.shape[0] != xyz2.shape[0]:
+        raise ValueError('{} takes (B, N, 3) and (B, M, 3), got {} and '
+                         '{}'.format(name, tuple(xyz1.shape),
+                                     tuple(xyz2.shape)))
+    if xyz1.dtype != torch.float32 or xyz2.dtype != torch.float32:
+        raise TypeError('{} takes float32 clouds, got {} and {}'.format(
+            name, xyz1.dtype, xyz2.dtype))
+    if xyz1.device != xyz2.device:
+        raise ValueError('clouds on different devices: {} and {}'.format(
+            xyz1.device, xyz2.device))
+    if xyz1.device.type not in ('cpu', 'cuda'):
+        raise ValueError('{} runs on CPU or CUDA, got {}'.format(
+            name, xyz1.device))
+
+
+def _check_kernel_shape(name, xyz1, xyz2):
+    """The kernels' common gate: contiguous clouds, n, m >= 1, and
+    24 * (n + m) bytes of state within a block's shared memory."""
+    n, m = xyz1.shape[1], xyz2.shape[1]
+    if not (xyz1.is_contiguous() and xyz2.is_contiguous()):
+        raise ValueError('{} kernel takes contiguous clouds'.format(name))
+    if n < 1 or m < 1:
+        raise ValueError('{} needs n, m >= 1, got {}, {}'.format(name, n, m))
+    if 24 * (n + m) > _MAX_SMEM_BYTES:
+        raise ValueError(
+            '{} kernel keeps 24 * (n + m) bytes of state in shared memory; '
+            'n + m = {} exceeds {}'.format(name, n + m,
+                                           _MAX_SMEM_BYTES // 24))
+
+
+def _kernel_lib(name, num_pointers):
+    """The ctypes library of kernel ``name`` with its launch function's
+    signature: ``num_pointers`` tensors, then b, n, m and the stream."""
+    lib = cuda_build.load(name)
+    launch = getattr(lib, name + '_launch')
+    launch.argtypes = ([ctypes.c_void_p] * num_pointers +
+                       [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    error_string = getattr(lib, name + '_error_string')
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
+    return launch, error_string
+
+
+def _launch(name, tensors, b, n, m, device):
+    launch, error_string = _kernel_lib(name, len(tensors))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = launch(*[t.data_ptr() for t in tensors], b, n, m, stream)
+    if err != 0:
+        raise RuntimeError('{} kernel launch failed: {}'.format(
+            name, error_string(err).decode()))
 
 
 def _emd_cost_fused_cuda(xyz1, xyz2):
     """Launches K1 once over all B cloud pairs."""
-    b, n, _ = xyz1.shape
-    m = xyz2.shape[1]
-    if not (xyz1.is_contiguous() and xyz2.is_contiguous()):
-        raise ValueError('emd_cost_fused kernel takes contiguous clouds')
-    if n < 1 or m < 1:
-        raise ValueError('emd_cost_fused needs n, m >= 1, got '
-                         '{}, {}'.format(n, m))
-    if 24 * (n + m) > _MAX_SMEM_BYTES:
-        raise ValueError(
-            'emd_cost_fused kernel keeps 24 * (n + m) bytes of state in '
-            'shared memory; n + m = {} exceeds {}'.format(
-                n + m, _MAX_SMEM_BYTES // 24))
+    _check_kernel_shape('emd_cost_fused', xyz1, xyz2)
+    b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
     cost = torch.empty(b, dtype=torch.float32, device=xyz1.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(xyz1.device):
-        stream = torch.cuda.current_stream(xyz1.device).cuda_stream
-        err = lib.emd_cost_fused_launch(
-            xyz1.data_ptr(), xyz2.data_ptr(), cost.data_ptr(), b, n, m,
-            stream)
-    if err != 0:
-        raise RuntimeError('emd_cost_fused kernel launch failed: {}'.format(
-            lib.emd_cost_fused_error_string(err).decode()))
+    _launch('emd_cost_fused', (xyz1, xyz2, cost), b, n, m, xyz1.device)
     emd_cost_fused.launches += 1
     return cost
 
@@ -167,27 +252,144 @@ def emd_cost_fused(xyz1, xyz2, batch_chunk=4):
     CPU tensors go through ``emd_cost_fused_plain`` (``batch_chunk``
     pairs at a time). Any other device raises.
     """
-    if xyz1.dim() != 3 or xyz1.shape[2] != 3 or xyz2.dim() != 3 or \
-            xyz2.shape[2] != 3 or xyz1.shape[0] != xyz2.shape[0]:
-        raise ValueError('emd_cost_fused takes (B, N, 3) and (B, M, 3), '
-                         'got {} and {}'.format(tuple(xyz1.shape),
-                                                tuple(xyz2.shape)))
-    if xyz1.dtype != torch.float32 or xyz2.dtype != torch.float32:
-        raise TypeError('emd_cost_fused takes float32 clouds, got '
-                        '{} and {}'.format(xyz1.dtype, xyz2.dtype))
-    if xyz1.device != xyz2.device:
-        raise ValueError('clouds on different devices: {} and {}'.format(
-            xyz1.device, xyz2.device))
+    _check_clouds('emd_cost_fused', xyz1, xyz2)
     if xyz1.device.type == 'cpu':
         return emd_cost_fused_plain(xyz1, xyz2, batch_chunk)
-    if xyz1.device.type != 'cuda':
-        raise ValueError('emd_cost_fused runs on CPU or CUDA, got '
-                         '{}'.format(xyz1.device))
     with torch.no_grad():
         return _emd_cost_fused_cuda(xyz1, xyz2)
 
 
 emd_cost_fused.launches = 0
+
+
+def _emd_loss_accumulators_chunk(xyz1, xyz2):
+    """K2's arithmetic in its order: each round's weights are
+    exp(level * d) times a row scale and a column scale, and the
+    row-side sums of a round are taken with the next round's row pass,
+    once its column scale is known (a last sweep takes the final
+    round's)."""
+    d = _sq_dists(xyz1, xyz2)
+    inv = torch.rsqrt(d.clamp(min=_DIST_FLOOR))
+    b, n, m = d.shape
+    factor_l, factor_r = _capacity_factors(n, m)
+    sat_l = d.new_full((b, n), float(factor_l))
+    sat_r = d.new_full((b, m), float(factor_r))
+    row_scale = d.new_zeros((b, n))
+    col_weight = d.new_zeros((b, m))      # sat_r * col_scale of a round
+    cost = d.new_zeros(b)
+    grow, gx2t = d.new_zeros((b, n)), d.new_zeros((b, 3, n))
+    gcol, gx1t = d.new_zeros((b, m)), d.new_zeros((b, 3, m))
+
+    def row_side(level):
+        """The finished round's row-side sums; returns its row masses."""
+        e = torch.exp(level * d) * col_weight[:, None, :]
+        wq = e * inv
+        grow.add_(row_scale * wq.sum(2))
+        gx2t.add_(row_scale[:, None, :] *
+                  torch.bmm(wq, xyz2).transpose(1, 2))
+        return e.sum(2)
+
+    prev_level = 0.0
+    for r, level in enumerate(_levels()):
+        row = (torch.exp(level * d) * sat_r[:, None, :]).sum(2)
+        if r > 0:
+            assigned = row_side(prev_level)
+            sat_l = torch.clamp(sat_l - row_scale * assigned, min=0.0)
+        row_scale = sat_l / (row + 1e-9)
+        w = torch.exp(level * d) * row_scale[:, :, None]
+        wq = w * inv
+        col = w.sum(1) * sat_r
+        cdist = (wq * d).sum(1) * sat_r            # sum w * sqrt(d)
+        col_scale = torch.clamp(sat_r / (col + 1e-9), max=1.0)
+        cost.add_((col_scale * cdist).sum(1))
+        col_weight = sat_r * col_scale
+        sat_r = torch.clamp(sat_r - col_scale * col, min=0.0)
+        gcol.add_(col_weight * wq.sum(1))
+        gx1t.add_(col_weight[:, None, :] *
+                  torch.bmm(wq.transpose(1, 2), xyz1).transpose(1, 2))
+        prev_level = level
+    row_side(prev_level)
+    return cost, grow, gcol, gx2t, gx1t
+
+
+@torch.no_grad()
+def emd_loss_plain_accumulators(xyz1, xyz2, batch_chunk=4):
+    """Plain PyTorch version of K2's outputs: (cost (B,), grow (B, N),
+    gcol (B, M), gx2t (B, 3, N), gx1t (B, 3, M)), with W = plan *
+    rsqrt(max(d, 1e-20)): grow = rowsum W, gcol = colsum W,
+    gx2t = (W @ xyz2)^T, gx1t = (W^T @ xyz1)^T. It repeats the kernel's
+    arithmetic in the kernel's order (the same value as through the
+    materialized plan, rounded otherwise), ``batch_chunk`` pairs' (N, M)
+    matrices at a time."""
+    xyz1, xyz2 = xyz1.float(), xyz2.float()
+    parts = [_emd_loss_accumulators_chunk(xyz1[i:i + batch_chunk],
+                                          xyz2[i:i + batch_chunk])
+             for i in range(0, xyz1.shape[0], batch_chunk)]
+    return tuple(torch.cat(pieces).contiguous() for pieces in zip(*parts))
+
+
+def _emd_loss_cuda(xyz1, xyz2):
+    """Launches K2 once over all B cloud pairs: the cost and the four
+    gradient accumulators."""
+    _check_kernel_shape('emd_loss', xyz1, xyz2)
+    b, n, m = xyz1.shape[0], xyz1.shape[1], xyz2.shape[1]
+    out = [torch.empty(shape, dtype=torch.float32, device=xyz1.device)
+           for shape in ((b,), (b, n), (b, m), (b, 3, n), (b, 3, m))]
+    _launch('emd_loss', (xyz1, xyz2, *out), b, n, m, xyz1.device)
+    emd_distance.launches += 1
+    return tuple(out)
+
+
+def emd_loss_accumulators(xyz1, xyz2, batch_chunk=4):
+    """(cost, grow, gcol, gx2t, gx1t) as ``emd_loss_plain_accumulators``
+    defines them, without gradient. CUDA tensors go through K2 in one
+    launch (counted in ``emd_distance.launches``); CPU tensors through
+    the plain version. Any other device raises."""
+    _check_clouds('emd_loss_accumulators', xyz1, xyz2)
+    if xyz1.device.type == 'cpu':
+        return emd_loss_plain_accumulators(xyz1, xyz2, batch_chunk)
+    with torch.no_grad():
+        return _emd_loss_cuda(xyz1, xyz2)
+
+
+class _EmdLoss(torch.autograd.Function):
+    """K2 forward; the backward assembles the gradients from its
+    accumulators (elementwise, as the JAX package's _emd_loss_bwd)."""
+
+    @staticmethod
+    def forward(ctx, xyz1, xyz2):
+        cost, grow, gcol, gx2t, gx1t = _emd_loss_cuda(xyz1, xyz2)
+        ctx.save_for_backward(xyz1, xyz2, grow, gcol, gx2t, gx1t)
+        return cost
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz1, xyz2, grow, gcol, gx2t, gx1t = ctx.saved_tensors
+        g = g[:, None, None]
+        grad1 = (xyz1 * grow[..., None] - gx2t.transpose(1, 2)) * g
+        grad2 = (xyz2 * gcol[..., None] - gx1t.transpose(1, 2)) * g
+        return grad1, grad2
+
+
+def emd_distance(xyz1, xyz2, batch_chunk=4):
+    """Approximate EMD per cloud pair, differentiable in both clouds
+    through the (gradient-free) transport plan: (B, N, 3), (B, M, 3) ->
+    (B,).
+
+    CUDA tensors go through the kernel K2 in one launch over all B pairs
+    (``emd_distance.launches`` counts the launches); the plan never
+    reaches device memory. CPU tensors go through
+    ``match_cost(approx_match(...))``, ``batch_chunk`` pairs' plans at a
+    time. Any other device raises.
+    """
+    _check_clouds('emd_distance', xyz1, xyz2)
+    if xyz1.device.type == 'cpu':
+        return match_cost(xyz1, xyz2, approx_match(xyz1, xyz2, batch_chunk),
+                          batch_chunk)
+    return _EmdLoss.apply(xyz1.contiguous(), xyz2.contiguous())
+
+
+emd_distance.launches = 0
 
 
 # ---------------------------------------------------------------------------

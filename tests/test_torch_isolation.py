@@ -1,5 +1,5 @@
-"""monopsr_torch stands alone: no jax, no monopsr_tpu, no host-only
-libraries, and no quiet fall back to the CPU."""
+"""monopsr_torch stands alone: no jax, flax, optax or monopsr_tpu, no
+host-only libraries, and no quiet fall back to the CPU."""
 
 import os
 import subprocess
@@ -12,7 +12,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'yaml', 'monopsr_tpu'):
+for name in ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml',
+             'monopsr_tpu'):
     sys.modules[name] = None          # any import of these raises
 import monopsr_torch
 names = ['monopsr_torch'] + [
@@ -22,20 +23,21 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in (
-    'jax', 'jaxlib', 'flax', 'cv2', 'PIL', 'yaml', 'monopsr_tpu')
+    'jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml', 'monopsr_tpu')
     and sys.modules[m] is not None)
 print(len(names), leaked)
 """
 
 
 def test_package_imports_without_jax_or_reference():
-    """Every module of the port (and chip_smoke.py) imports with jax,
-    flax, cv2, PIL, yaml and monopsr_tpu made unimportable."""
+    """Every module of the port, the train modules included (and
+    chip_smoke.py), imports with jax, flax, optax, cv2, PIL, yaml and
+    monopsr_tpu made unimportable."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 20
+    assert int(count) >= 24
     assert leaked.strip() == '[]'
 
 
@@ -46,7 +48,8 @@ def test_sources_name_no_jax():
                 with open(os.path.join(root, name)) as f:
                     text = f.read()
                 for banned in ('import jax', 'from jax', 'import flax',
-                               'from monopsr_tpu', 'import monopsr_tpu'):
+                               'import optax', 'from monopsr_tpu',
+                               'import monopsr_tpu'):
                     assert banned not in text, (name, banned)
 
 
@@ -54,6 +57,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     from monopsr_torch.eval import evaluator
     from monopsr_torch.models import monopsr
     from monopsr_torch.models.monopsr_net import NetConfig
+    from monopsr_torch.train import optimizer, trainer
     from monopsr_torch.utils import device
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -66,6 +70,12 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     net = monopsr.create_net(cfg, device='cpu')
     with pytest.raises(RuntimeError, match='CUDA'):
         evaluator.make_eval_step(net, cfg, {}, 'val')
+    tx, _, _, _ = optimizer.build_optimizer({'optimizer': {
+        'optimizer_type': 'gradient_descent_optimizer',
+        'gradient_descent_optimizer': {'learning_rate_type': 'constant',
+                                       'learning_rate': 0.1}}})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        trainer.make_train_step(net, cfg, {}, tx, False, None)
     assert device.resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         evaluator.make_eval_step(net, cfg, {}, 'train', device='cpu')
@@ -76,3 +86,5 @@ def test_kernel_wrapper_refuses_other_devices():
     x = torch.zeros(1, 4, 3, device='meta')
     with pytest.raises(ValueError, match='CPU or CUDA'):
         emd.emd_cost_fused(x, x)
+    with pytest.raises(ValueError, match='CPU or CUDA'):
+        emd.emd_distance(x, x)

@@ -6,8 +6,8 @@ only PyTorch and the CUDA toolkit, without tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-(``python3 chip_smoke.py`` runs the same comparison at the eval step's
-shapes.)
+(``python3 chip_smoke.py`` runs the same comparisons at the eval and
+train steps' shapes.)
 """
 
 import numpy as np
@@ -70,3 +70,134 @@ def test_emd_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError, match='shared memory'):
         big = torch.zeros(1, 6000, 3, device='cuda')
         emd.emd_cost_fused(big, big)
+
+
+def _loss_clouds(b, n, m, seed, keep=1.0, gap=0.0):
+    """As the JAX package's loss-kernel tests draw them, optionally both
+    zeroed outside one mask (exact zero points, as the 'emd' loss masks
+    the maps); with gap > 0 drawn apart around (+-gap, 0, 0), spread
+    0.25, so that no point lies near the other cloud or the origin."""
+    rng = np.random.RandomState(seed)
+    if gap > 0:
+        shift = np.array([gap, 0.0, 0.0])
+        xyz1 = (rng.randn(b, n, 3) * 0.25 + shift).astype(np.float32)
+        xyz2 = (rng.randn(b, m, 3) * 0.25 - shift).astype(np.float32)
+    else:
+        xyz1 = rng.randn(b, n, 3).astype(np.float32)
+        xyz2 = (rng.randn(b, m, 3) * 0.6 + 0.1).astype(np.float32)
+    if keep < 1.0:
+        mask = (rng.uniform(size=(b, n, 1)) < keep).astype(np.float32)
+        xyz1, xyz2 = xyz1 * mask, xyz2 * mask
+    return torch.from_numpy(xyz1).cuda(), torch.from_numpy(xyz2).cuda()
+
+
+def _max_rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _accumulator_errors(xyz1, xyz2, got, want):
+    """Per accumulator (grow, gcol, gx2t, gx1t): max |diff| / max |want|
+    over the points with no partner within the 1e-20 floor in the other
+    cloud, and for the floored points (masked slots at the origin, where
+    W = plan * 1e10) the same over max |want| of all points."""
+    pinned = emd._sq_dists(xyz1, xyz2) <= emd._DIST_FLOOR
+    errs = []
+    for g, w, floored in zip(got[1:], want[1:], (pinned.any(2), pinned.any(1),
+                                                 pinned.any(2), pinned.any(1))):
+        if g.dim() == 3:
+            floored = floored[:, None, :].expand_as(g)
+        diff, scale = (g - w).abs(), w.abs()
+        err = 0.0
+        if bool((~floored).any()):
+            err = float(diff[~floored].max() / scale[~floored].max())
+        if bool(floored.any()):
+            err = max(err, float(diff[floored].max() / scale.max()))
+        errs.append(err)
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b,n,m,keep', [(2, 256, 128, 1.0), (1, 60, 52, 1.0),
+                                        (3, 144, 144, 0.6), (1, 1, 7, 1.0)])
+def test_emd_loss_kernel_matches_plain(b, n, m, keep):
+    """K2 vs emd_loss_plain_accumulators (the same arithmetic in the same
+    order) on the same card tensors. Tolerances as the JAX package holds
+    its loss kernel: cost rtol 1e-3; each accumulator within 5e-3 of its
+    largest plain value (tests/test_ops.py:352), taken apart from the
+    floored points' 1e10 terms (_accumulator_errors)."""
+    _cuda()
+    xyz1, xyz2 = _loss_clouds(b, n, m, seed=7, keep=keep)
+    before = emd.emd_distance.launches
+    got = emd.emd_loss_accumulators(xyz1, xyz2)
+    assert emd.emd_distance.launches == before + 1
+    want = emd.emd_loss_plain_accumulators(xyz1, xyz2)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-3)
+    assert max(_accumulator_errors(xyz1, xyz2, got, want)) < 5e-3
+
+
+def _plain_gradients(xyz1, xyz2, g):
+    """The gradients of sum(g * cost) assembled on the CPU from the plain
+    accumulators."""
+    x1, x2 = xyz1.cpu(), xyz2.cpu()
+    _, grow, gcol, gx2t, gx1t = emd.emd_loss_plain_accumulators(x1, x2)
+    g = g[:, None, None]
+    return ((x1 * grow[..., None] - gx2t.transpose(1, 2)) * g,
+            (x2 * gcol[..., None] - gx1t.transpose(1, 2)) * g)
+
+
+@pytest.mark.cuda
+def test_emd_loss_kernel_gradient():
+    """The autograd gradient of emd_distance on the card (K2 forward,
+    accumulator backward), each pair's cost weighted by its own g,
+    against the same gradient assembled on the CPU from the plain
+    accumulators: within 2e-2 of the largest component, the JAX
+    package's bound for its loss kernel's gradients
+    (tests/test_ops.py:379). Identical clouds give a finite gradient."""
+    _cuda()
+    xyz1, xyz2 = _loss_clouds(2, 128, 128, seed=0)
+    g = torch.tensor([0.7, 1.3])
+    a = xyz1.clone().requires_grad_()
+    c = xyz2.clone().requires_grad_()
+    (emd.emd_distance(a, c) * g.cuda()).sum().backward()
+    want1, want2 = _plain_gradients(xyz1, xyz2, g)
+    assert _max_rel(a.grad.cpu(), want1) < 2e-2
+    assert _max_rel(c.grad.cpu(), want2) < 2e-2
+    x = xyz1[:1].clone().requires_grad_()
+    emd.emd_distance(x, xyz1[:1].clone()).sum().backward()
+    assert bool(torch.isfinite(x.grad).all())
+
+
+@pytest.mark.cuda
+def test_emd_loss_kernel_gradient_at_train_shape():
+    """At the train step's 2304 points per cloud (three columns per
+    thread), 40% masked, on clouds drawn apart: the gradient is well
+    conditioned there (the plain float32 version within ~1e-5 of a
+    float64 run, tests/test_torch_emd_loss.py), so the autograd gradient on the card is held per pair
+    to 2e-2 of its largest component against the plain version's, and
+    the accumulators as test_emd_loss_kernel_matches_plain holds them."""
+    _cuda()
+    xyz1, xyz2 = _loss_clouds(2, 2304, 2304, seed=3, keep=0.6, gap=2.5)
+    assert max(_accumulator_errors(
+        xyz1, xyz2, emd.emd_loss_accumulators(xyz1, xyz2),
+        emd.emd_loss_plain_accumulators(xyz1, xyz2))) < 5e-3
+    g = torch.tensor([0.7, 1.3])
+    a = xyz1.clone().requires_grad_()
+    c = xyz2.clone().requires_grad_()
+    (emd.emd_distance(a, c) * g.cuda()).sum().backward()
+    for got, want in zip((a.grad.cpu(), c.grad.cpu()),
+                         _plain_gradients(xyz1, xyz2, g)):
+        for pair in range(2):
+            assert _max_rel(got[pair], want[pair]) < 2e-2
+
+
+@pytest.mark.cuda
+def test_emd_loss_kernel_refuses_bad_inputs():
+    _cuda()
+    big = torch.zeros(1, 6000, 3, device='cuda')
+    with pytest.raises(ValueError, match='shared memory'):
+        emd.emd_distance(big, big)
+    with pytest.raises(TypeError):
+        emd.emd_distance(big.double(), big.double())

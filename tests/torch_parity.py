@@ -157,3 +157,57 @@ def jax_eval_step(net, cfg, loss_config, eval_mode):
         return jax.vmap(per_sample)(batch, outputs)
 
     return jax.jit(eval_step, static_argnums=2)
+
+
+def jax_loss_fn(net, cfg, loss_config, batch_stats, batch):
+    """The loss_fn of monopsr_tpu.train.trainer.make_train_step, for
+    jax.value_and_grad over the params: (mean total, (mean losses, new
+    batch stats))."""
+    import jax.numpy as jnp
+
+    def loss_fn(params):
+        outputs, mutated = net.apply(
+            {'params': params, 'batch_stats': batch_stats},
+            **jax_monopsr.net_inputs_from_batch(batch), train=True,
+            mutable=['batch_stats'])
+
+        def per_sample(sample, sample_outputs):
+            gt = jax_monopsr.build_gt_dict(cfg, sample, sample_outputs)
+            sample_outputs, gt = jax_monopsr.add_global_outputs(
+                cfg, sample, sample_outputs, gt)
+            losses, total = jax_monopsr.compute_losses(
+                cfg, loss_config, sample_outputs, gt)
+            return total, losses
+
+        totals, losses = jax.vmap(per_sample)(batch, outputs)
+        return jnp.mean(totals), (jax.tree.map(jnp.mean, losses),
+                                  mutated['batch_stats'])
+
+    return loss_fn
+
+
+def train_config(decay_steps=2, use_ema=True):
+    """Adam with staircase exponential decay, as the production
+    train_config, with a short decay period so a few steps cross a
+    boundary."""
+    return {'optimizer': {
+        'optimizer_type': 'adam_optimizer',
+        'adam_optimizer': {
+            'learning_rate_type': 'exponential_decay',
+            'initial_learning_rate': 8e-5,
+            'decay_steps': decay_steps,
+            'decay_factor': 0.8,
+            'staircase': True,
+            'use_moving_average': use_ema,
+            'moving_average_decay': 0.9,
+        }}}
+
+
+def loss_config(xyz_loss):
+    """LOSS_CONFIG with inst_xyz_map_local set to ``xyz_loss``."""
+    return dict(LOSS_CONFIG, inst_xyz_map_local=list(xyz_loss))
+
+
+def leaves(tree):
+    """{path: numpy leaf} of a nested dict."""
+    return dict(weights._flatten(tree))
