@@ -2,195 +2,48 @@
 //
 // Replaces the Pallas TPU kernel monopsr_tpu/ops/emd.py:_emd_fused_kernel
 // (launched by _emd_cost_fused_pallas, chosen by emd_cost_fused). Same
-// arithmetic as the plain PyTorch version in monopsr_torch/ops/emd.py
-// (emd_cost_fused_plain): per cloud pair, 11 annealing rounds at level
-// -4^j for j = 8..-1, then 0; each round
-//     w = exp(level * d) * sat_r, rows scaled to sat_l, columns capped
-//     at sat_r, both saturations decremented, cost += sum(w * sqrt(d)),
-// with the integer capacity factors max(n,m)/n and max(n,m)/m.
+// value as the plain PyTorch version in monopsr_torch/ops/emd.py
+// (emd_cost_fused_plain): per cloud pair, the annealing sweep of
+// csrc/emd_sweep.cuh without the gradient accumulators, 11 rounds at level
+// -4^j for j = 8..-1, then 0, and the cost sum(w * sqrt(d)) over them.
 //
-// Design. The TPU kernel keeps the (n, m) plan of a round in VMEM. A
-// block here has 227 KB of shared memory and the plan of one 2304 x 2304
-// pair is 21 MB, so the plan is never stored: a round's weight is
-// recomputed from the coordinates plus O(n + m) state held in shared
-// memory (both clouds with their squared norms, sat_l, the row scale
-// sat_l / (row_sum + 1e-9), sat_r, and the previous round's
-// sat_r * col_scale). One block per cloud pair; per round:
-//   row pass    - warp per row: row sum of exp(level*d)*sat_r by warp
-//                 reduce, plus the previous round's deferred column
-//                 scale folded into sat_l (as the TPU kernel does);
-//   column pass - thread per column, looping over rows: column sum and
-//                 sum of w*sqrt(d), then col_scale, sat_r and the
-//                 cost. No atomics: the result is the same on every run.
-// Everything is float32 and any n, m >= 1 is taken while 24 * (n + m)
-// bytes of state fit in shared memory.
+// The TPU kernel keeps the (n, m) plan of a round in VMEM. A block here
+// has 227 KB of shared memory and the plan of one 2304 x 2304 pair is
+// 21 MB, so the plan is never stored: each pass recomputes its weights
+// from the coordinates and 24 (n + m) bytes of state.
 //
-// Bound on the card: the work is transcendental. Per element and round
-// it needs one exp (none in the final level-0 round) and one sqrt, i.e.
-// 21 special-function results per element over the 11 rounds:
+// Bound on the card: the work is transcendental. Per element and round it
+// needs one exp (none in the final level-0 round) and one sqrt, i.e. 21
+// special-function results per element over the 11 rounds:
 // 128 x 2304^2 x 21 = 1.4e10 at the eval step's (128, 2304, 3) shape.
-// Hopper's special-function units give 16 results per clock per SM, so
-// on an H100 SXM (132 SMs, 1980 MHz) the bound is 3.4 ms; the inputs
-// (7 MB) are negligible. This kernel recomputes each weight in three passes (two
-// exps in the row pass, one in the column pass), so it does about twice
-// the special-function work of that bound.
+// Hopper's special-function units give 16 results per clock per SM, so on
+// an H100 SXM (132 SMs, 1980 MHz) the bound is 3.4 ms; the inputs (7 MB)
+// are negligible. The sweep takes two exps and one rsqrt per element and
+// round (an exp in each pass), and one block per pair at the eval step's
+// 128 pairs.
 
-#include <cuda_runtime.h>
+#include "emd_sweep.cuh"
 
-namespace {
-
-constexpr int kRounds = 11;
-constexpr int kMaxWarps = 32;
-
-__device__ __forceinline__ float level_of(int r) {
-  // -4^(8 - r) for rounds 0..9 (exact powers of two), 0 for the last
-  return r == kRounds - 1 ? 0.0f : -ldexpf(1.0f, 2 * (8 - r));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  // Unfused, in the plain version's order: (x*x + y*y) + z*z
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                   __fmul_rn(z, z));
-}
-
-__device__ __forceinline__ float sq_dist(const float4 p, const float4 q) {
-  // Same grouping as the plain version: (|p|^2 + |q|^2) - 2 p.q, clamped
-  // at 0. Two points at the origin (masked slots) give exactly 0.
-  const float dot = fmaf(p.z, q.z, fmaf(p.y, q.y, __fmul_rn(p.x, q.x)));
-  return fmaxf(__fsub_rn(__fadd_rn(p.w, q.w), 2.0f * dot), 0.0f);
-}
-
-__global__ void __launch_bounds__(1024, 1)
-emd_cost_fused_kernel(const float* __restrict__ xyz1,
-                      const float* __restrict__ xyz2,
-                      float* __restrict__ cost, int n, int m) {
-  extern __shared__ float4 smem[];
-  float4* p1 = smem;                                  // n: x, y, z, |p|^2
-  float4* q2 = p1 + n;                                // m: x, y, z, |q|^2
-  float* sat_l = reinterpret_cast<float*>(q2 + m);    // n
-  float* rs = sat_l + n;                              // n: row scale
-  float* sat_r = rs + n;                              // m
-  float* prev = sat_r + m;                            // m: sat_r*col_scale
-  __shared__ float red[kMaxWarps];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int num_warps = blockDim.x >> 5;
-  const float* a = xyz1 + static_cast<size_t>(blockIdx.x) * n * 3;
-  const float* c = xyz2 + static_cast<size_t>(blockIdx.x) * m * 3;
-
-  // Integer capacity factors, as the reference's C++ int division
-  const int big = n > m ? n : m;
-  const float factor_l = static_cast<float>(big / n);
-  const float factor_r = static_cast<float>(big / m);
-
-  for (int i = tid; i < n; i += blockDim.x) {
-    const float x = a[3 * i], y = a[3 * i + 1], z = a[3 * i + 2];
-    p1[i] = make_float4(x, y, z, sq_norm(x, y, z));
-    sat_l[i] = factor_l;
-    rs[i] = 0.0f;
-  }
-  for (int j = tid; j < m; j += blockDim.x) {
-    const float x = c[3 * j], y = c[3 * j + 1], z = c[3 * j + 2];
-    q2[j] = make_float4(x, y, z, sq_norm(x, y, z));
-    sat_r[j] = factor_r;
-    prev[j] = 0.0f;
-  }
-  __syncthreads();
-
-  float total = 0.0f;
-  float prev_level = 0.0f;
-  for (int r = 0; r < kRounds; ++r) {
-    const float level = level_of(r);
-
-    // Row pass: sat_l takes the previous round's column-scaled weights,
-    // then this round's row scale is set
-    for (int i = warp; i < n; i += num_warps) {
-      const float4 p = p1[i];
-      float row = 0.0f;
-      float assigned = 0.0f;
-      for (int j = lane; j < m; j += 32) {
-        const float4 q = q2[j];
-        const float d = sq_dist(p, q);
-        if (r > 0) assigned += expf(prev_level * d) * prev[j];
-        row += expf(level * d) * sat_r[j];
-      }
-      row = warp_sum(row);
-      assigned = warp_sum(assigned);
-      if (lane == 0) {
-        float sl = sat_l[i];
-        if (r > 0) sl = fmaxf(sl - rs[i] * assigned, 0.0f);
-        sat_l[i] = sl;
-        rs[i] = sl / (row + 1e-9f);
-      }
-    }
-    __syncthreads();
-
-    // Column pass: each thread owns whole columns
-    float cost_part = 0.0f;
-    for (int j = tid; j < m; j += blockDim.x) {
-      const float4 q = q2[j];
-      float col = 0.0f;
-      float cdist = 0.0f;
-      for (int i = 0; i < n; ++i) {
-        const float d = sq_dist(p1[i], q);
-        const float w = expf(level * d) * rs[i];
-        col += w;
-        cdist += w * sqrtf(d);
-      }
-      const float sr = sat_r[j];
-      col *= sr;
-      cdist *= sr;
-      const float col_scale = fminf(sr / (col + 1e-9f), 1.0f);
-      cost_part += col_scale * cdist;
-      sat_r[j] = fmaxf(sr - col_scale * col, 0.0f);
-      prev[j] = sr * col_scale;
-    }
-    cost_part = warp_sum(cost_part);
-    if (lane == 0) red[warp] = cost_part;
-    __syncthreads();
-    if (warp == 0) {
-      float v = lane < num_warps ? red[lane] : 0.0f;
-      v = warp_sum(v);
-      total += v;
-    }
-    prev_level = level;
-  }
-  if (tid == 0) cost[blockIdx.x] = total;
-}
-
-}  // namespace
-
-// Launches one block per cloud pair on `stream`; returns a cudaError_t.
-// xyz1 (b, n, 3), xyz2 (b, m, 3), cost (b,): contiguous float32.
+// xyz1 (b, n, 3), xyz2 (b, m, 3), cost (b,): contiguous float32. Launches
+// on `stream`; returns a cudaError_t.
 extern "C" int emd_cost_fused_launch(const float* xyz1, const float* xyz2,
                                      float* cost, int b, int n, int m,
                                      void* stream) {
-  if (b == 0) return cudaSuccess;
-  if (b < 0 || n <= 0 || m <= 0) return cudaErrorInvalidValue;
-  // Dynamic shared memory: two float4 clouds and four float vectors
-  const long long smem = 24LL * (static_cast<long long>(n) + m);
-  cudaError_t err = cudaFuncSetAttribute(
-      emd_cost_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // Enough threads that each owns at most ceil(m / 1024) columns, in
-  // whole warps: 768 threads (3 columns each) at m = 2304
-  const int per_thread = (m + 1023) / 1024;
-  const int threads = ((m + per_thread - 1) / per_thread + 31) / 32 * 32;
-  emd_cost_fused_kernel<<<b, threads, static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-      xyz1, xyz2, cost, n, m);
-  return cudaGetLastError();
+  const emd_sweep::Grads none = {nullptr, nullptr, nullptr, nullptr};
+  return emd_sweep::launch<false>(xyz1, xyz2, cost, none, b, n, m,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// Blocks per cloud pair at (b, n, m) on the current device; minus a
+// cudaError_t on an error
+extern "C" int emd_cost_fused_cluster_size(int b, int n, int m) {
+  return emd_sweep::cluster_size<false>(b, n, m);
+}
+
+// Clusters of c blocks the current device holds at once at (b, n, m);
+// minus a cudaError_t on an error
+extern "C" int emd_cost_fused_active_clusters(int b, int n, int m, int c) {
+  return emd_sweep::active_clusters<false>(b, n, m, c);
 }
 
 extern "C" const char* emd_cost_fused_error_string(int code) {

@@ -3,12 +3,14 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
 for Hopper (``sm_90a``) into a shared library under
 ``build/monopsr_torch_kernels/`` at the repository root (listed in
-.gitignore). The library name carries a hash of the source and flags,
-so an edited source is rebuilt and an unchanged one is reused. Nothing
+.gitignore). The library name carries a hash of the source, of every
+header (``*.cuh``) beside it and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. Nothing
 is built or loaded at import time: the first call to ``load`` builds.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -36,8 +38,17 @@ def source_path(name):
 
 
 def library_path(name):
-    with open(source_path(name), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    """The library of kernel ``name``, named by a hash of its source, the
+    headers in the source's directory (any of them may be included) and
+    the flags."""
+    source = source_path(name)
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(os.path.dirname(source),
+                                            '*.cuh')))
+    for path in [source] + headers:
+        with open(path, 'rb') as f:
+            digest.update(os.path.basename(path).encode() + b'\0' +
+                          f.read())
     return os.path.join(BUILD_DIR, '{}-{}.so'.format(
         name, digest.hexdigest()[:16]))
 

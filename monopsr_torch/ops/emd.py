@@ -25,6 +25,8 @@ saturation bookkeeping, then the cost sum(match * |p - q|).
   contractions) without the autograd wrapper; ``emd_loss_plain_accumulators``
   is their plain PyTorch version, in the kernel's order of arithmetic,
   for the CPU and the on-card comparison.
+- ``cluster_size``: the blocks per cloud pair K1 or K2 launches with.
+  Both kernels run one sweep (``csrc/emd_sweep.cuh``).
 - ``np_approx_match`` / ``np_match_cost``: float64 NumPy oracle.
 """
 
@@ -217,20 +219,43 @@ def _kernel_lib(name, num_pointers):
     launch.argtypes = ([ctypes.c_void_p] * num_pointers +
                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
     launch.restype = ctypes.c_int
+    return lib, launch
+
+
+def _error_string(lib, name, code):
     error_string = getattr(lib, name + '_error_string')
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
-    return launch, error_string
+    return error_string(code).decode()
+
+
+def cluster_size(name, b, n, m, device=None):
+    """Blocks per cloud pair (a thread-block cluster) that kernel ``name``
+    ('emd_cost_fused' or 'emd_loss') launches at (b, n, m) on a CUDA
+    device: the largest of 8, 4, 2 with b times it at most the SM count
+    whose b clusters fit on the card at once, else 1. Builds the kernel
+    if need be."""
+    lib = cuda_build.load(name)
+    query = getattr(lib, name + '_cluster_size')
+    query.argtypes = [ctypes.c_int] * 3
+    query.restype = ctypes.c_int
+    with torch.cuda.device(device if device is not None else
+                           torch.cuda.current_device()):
+        size = query(b, n, m)
+    if size <= 0:
+        raise RuntimeError('{} cluster size query failed: {}'.format(
+            name, _error_string(lib, name, -size)))
+    return size
 
 
 def _launch(name, tensors, b, n, m, device):
-    launch, error_string = _kernel_lib(name, len(tensors))
+    lib, launch = _kernel_lib(name, len(tensors))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = launch(*[t.data_ptr() for t in tensors], b, n, m, stream)
     if err != 0:
         raise RuntimeError('{} kernel launch failed: {}'.format(
-            name, error_string(err).decode()))
+            name, _error_string(lib, name, err)))
 
 
 def _emd_cost_fused_cuda(xyz1, xyz2):
@@ -262,13 +287,53 @@ def emd_cost_fused(xyz1, xyz2, batch_chunk=4):
 emd_cost_fused.launches = 0
 
 
+_LOG2E_F32 = 1.44269502162933349609375      # log2(e) rounded to float32
+
+
+def _kernel_sq_dists(xyz1, xyz2):
+    """Squared distances (B, N, M) as the kernels round them in float32:
+    |p|^2 = (x*x + y*y) + z*z, p.q = fma(z, z', fma(y, y', x*x')) (each
+    fma rounded once: the product of two float32 is exact in float64),
+    then (|p|^2 + |q|^2) - 2 p.q clamped at 0. Other types: _sq_dists."""
+    if xyz1.dtype != torch.float32:
+        return _sq_dists(xyz1, xyz2)
+
+    def sq_norm(x):
+        return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + \
+            x[..., 2] * x[..., 2]
+
+    p, q = xyz1[:, :, None, :], xyz2[:, None, :, :]
+    dot = p[..., 0] * q[..., 0]
+    for k in (1, 2):
+        dot = (p[..., k].double() * q[..., k].double() +
+               dot.double()).float()
+    return ((sq_norm(xyz1)[:, :, None] + sq_norm(xyz2)[:, None, :]) -
+            2.0 * dot).clamp(min=0.0)
+
+
+def _kernel_exp(d, level):
+    """exp(level * d) as the kernels take it in float32: 2^(d * level *
+    log2(e)), the product rounded once in float32 (level * log2(e) is
+    exact: the levels are powers of two). Other types: exp(level * d)."""
+    if d.dtype != torch.float32:
+        return torch.exp(level * d)
+    return torch.exp2(d * (level * _LOG2E_F32))
+
+
 def _emd_loss_accumulators_chunk(xyz1, xyz2):
     """K2's arithmetic in its order: each round's weights are
     exp(level * d) times a row scale and a column scale, and the
     row-side sums of a round are taken with the next round's row pass,
     once its column scale is known (a last sweep takes the final
-    round's)."""
-    d = _sq_dists(xyz1, xyz2)
+    round's). The row pass computes one exp per element: the previous
+    round's weight exp(4 level d) is this round's squared twice (the
+    levels are powers of four), except at level 0, where it takes its
+    own exp(-d / 4). sqrt(d) is d * rsqrt(max(d, 1e-20)). In float32 the
+    distances and exps round as the kernel's (_kernel_sq_dists,
+    _kernel_exp): on clouds of realistic size the plan is ill-conditioned,
+    and rounding d otherwise moves the accumulators by as much as a
+    kernel fault would."""
+    d = _kernel_sq_dists(xyz1, xyz2)
     inv = torch.rsqrt(d.clamp(min=_DIST_FLOOR))
     b, n, m = d.shape
     factor_l, factor_r = _capacity_factors(n, m)
@@ -280,9 +345,10 @@ def _emd_loss_accumulators_chunk(xyz1, xyz2):
     grow, gx2t = d.new_zeros((b, n)), d.new_zeros((b, 3, n))
     gcol, gx1t = d.new_zeros((b, m)), d.new_zeros((b, 3, m))
 
-    def row_side(level):
-        """The finished round's row-side sums; returns its row masses."""
-        e = torch.exp(level * d) * col_weight[:, None, :]
+    def row_side(e_prev):
+        """The finished round's row-side sums from its exp(level * d);
+        returns its row masses."""
+        e = e_prev * col_weight[:, None, :]
         wq = e * inv
         grow.add_(row_scale * wq.sum(2))
         gx2t.add_(row_scale[:, None, :] *
@@ -291,12 +357,17 @@ def _emd_loss_accumulators_chunk(xyz1, xyz2):
 
     prev_level = 0.0
     for r, level in enumerate(_levels()):
-        row = (torch.exp(level * d) * sat_r[:, None, :]).sum(2)
+        e = _kernel_exp(d, level)
+        row = (e * sat_r[:, None, :]).sum(2)
         if r > 0:
-            assigned = row_side(prev_level)
+            if level != 0.0:
+                e2 = e * e
+                assigned = row_side(e2 * e2)
+            else:
+                assigned = row_side(_kernel_exp(d, prev_level))
             sat_l = torch.clamp(sat_l - row_scale * assigned, min=0.0)
         row_scale = sat_l / (row + 1e-9)
-        w = torch.exp(level * d) * row_scale[:, :, None]
+        w = e * row_scale[:, :, None]
         wq = w * inv
         col = w.sum(1) * sat_r
         cdist = (wq * d).sum(1) * sat_r            # sum w * sqrt(d)
@@ -308,7 +379,7 @@ def _emd_loss_accumulators_chunk(xyz1, xyz2):
         gx1t.add_(col_weight[:, None, :] *
                   torch.bmm(wq.transpose(1, 2), xyz1).transpose(1, 2))
         prev_level = level
-    row_side(prev_level)
+    row_side(torch.ones_like(d))             # the level-0 round's weights
     return cost, grow, gcol, gx2t, gx1t
 
 

@@ -317,24 +317,11 @@ def test_float32_gradient_envelope_on_masked_clouds():
     assert max(jax_errs) > 2e-2, jax_errs
 
 
-@pytest.mark.parametrize('gap,keep', [(0.0, 0.6), (0.0, 1.0), (2.5, 0.6)])
-def test_float32_gradient_conditioning_at_train_size(gap, keep):
-    """One pair of 2304-point clouds, the size of the train step's maps:
-    the plain version of K2 in float32 against the same arithmetic in
-    float64, with the gradients assembled as K2's backward does. Random
-    clouds (gap 0), masked or not, are ill-conditioned: the float32
-    gradient lies more than 2e-2 of its largest component away (4.0e-2
-    masked, 3.3e-2 unmasked), while its L2 distance stays under 1e-2
-    (1.7e-3, 1.2e-3). Close pairs of points put weights exp(level * d)
-    at levels down to -65536 on an ulp of d, masked points leave float32
-    residues of their capacity that leak to real points near the origin,
-    and near-saturated columns turn such small absolute changes into
-    large relative ones. Clouds drawn apart around (+-2.5, 0, 0) with
-    spread 0.25, 40% masked, have no point near the other cloud or the
-    origin: there float32 stays within 2e-3 of the largest component
-    (3.5e-7). These two regimes set how chip_smoke.py holds K2's
-    gradients."""
-    rng = np.random.RandomState(0)
+def _float32_gradient_errors(gap, keep, seed):
+    """One pair of 2304-point clouds: the assembled gradients of the
+    plain version of K2 in float32 against the same arithmetic in
+    float64, as (max |diff| / max |float64|, L2 relative)."""
+    rng = np.random.RandomState(seed)
     if gap > 0:
         xyz1 = rng.randn(1, 2304, 3) * 0.25 + [gap, 0.0, 0.0]
         xyz2 = rng.randn(1, 2304, 3) * 0.25 - [gap, 0.0, 0.0]
@@ -354,7 +341,33 @@ def test_float32_gradient_conditioning_at_train_size(gap, keep):
                                            grads[torch.float64]))
     l2 = max(float(np.linalg.norm(g - w) / np.linalg.norm(w))
              for g, w in zip(grads[torch.float32], grads[torch.float64]))
+    return worst, l2
+
+
+@pytest.mark.parametrize('gap,keep', [(0.0, 0.6), (0.0, 1.0), (2.5, 0.6)])
+def test_float32_gradient_conditioning_at_train_size(gap, keep):
+    """Pairs of 2304-point clouds, the size of the train step's maps:
+    the plain version of K2 in float32 (with the kernel's rounding of d
+    and of exp) against the same arithmetic in float64, with the
+    gradients assembled as K2's backward does. Random clouds (gap 0),
+    masked or not, are ill-conditioned: over three pairs (seeds 0-2) the
+    float32 gradient lies more than 2e-2 of its largest component away
+    on some pair (masked: 2.8e-3, 2.6e-2, 7.4e-2; unmasked: 3.3e-2 and
+    0.11 on seeds 0 and 1), while its L2 distance stays under 1e-2
+    (at most 4.2e-3). Close pairs of points put weights exp(level * d)
+    at levels down to -65536 on an ulp of d, masked points leave float32
+    residues of their capacity that leak to real points near the origin,
+    and near-saturated columns turn such small absolute changes into
+    large relative ones. Clouds drawn apart around (+-2.5, 0, 0) with
+    spread 0.25, 40% masked, have no point near the other cloud or the
+    origin: there float32 stays within 2e-3 of the largest component
+    (3.2e-7). These two regimes set how chip_smoke.py holds K2's
+    gradients."""
     if gap > 0:
+        worst, _ = _float32_gradient_errors(gap, keep, 0)
         assert worst < 2e-3, worst
     else:
-        assert worst > 2e-2 and l2 < 1e-2, (worst, l2)
+        errors = [_float32_gradient_errors(gap, keep, seed)
+                  for seed in (0, 1, 2)]
+        assert max(w for w, _ in errors) > 2e-2, errors
+        assert max(l2 for _, l2 in errors) < 1e-2, errors

@@ -44,7 +44,7 @@ def test_package_imports_without_jax_or_reference():
 def test_sources_name_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, 'monopsr_torch')):
         for name in files:
-            if name.endswith(('.py', '.cu')):
+            if name.endswith(('.py', '.cu', '.cuh')):
                 with open(os.path.join(root, name)) as f:
                     text = f.read()
                 for banned in ('import jax', 'from jax', 'import flax',

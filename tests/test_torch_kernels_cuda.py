@@ -201,3 +201,49 @@ def test_emd_loss_kernel_refuses_bad_inputs():
         emd.emd_distance(big, big)
     with pytest.raises(TypeError):
         emd.emd_distance(big.double(), big.double())
+
+
+@pytest.mark.cuda
+def test_kernels_at_train_width_masked():
+    """K1 and K2 on one pair of 2304-point clouds, 40% masked, against
+    their plain versions on the same card tensors: the cost within 1e-3
+    relative for both, K2's accumulators as
+    test_emd_loss_kernel_matches_plain holds them."""
+    _cuda()
+    xyz1, xyz2 = _loss_clouds(1, 2304, 2304, seed=11, keep=0.6)
+    np.testing.assert_allclose(
+        emd.emd_cost_fused(xyz1, xyz2).cpu().numpy(),
+        emd.emd_cost_fused_plain(xyz1, xyz2).cpu().numpy(), rtol=1e-3)
+    got = emd.emd_loss_accumulators(xyz1, xyz2)
+    want = emd.emd_loss_plain_accumulators(xyz1, xyz2)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=1e-3)
+    assert max(_accumulator_errors(xyz1, xyz2, got, want)) < 5e-3
+
+
+@pytest.mark.cuda
+def test_pair_alone_matches_pair_in_batch():
+    """Both kernels run one sweep whose row and column sums do not depend
+    on the blocks per pair (the cluster size c): a pair launched alone
+    (c = 8) gives bitwise K2's accumulators of the same pair inside a
+    batch launched with fewer blocks per pair, and costs within 1e-6
+    relative (the cost alone is summed over the cluster's blocks); K1's
+    cost equals K2's within 1e-6 on the same clouds."""
+    _cuda()
+    b, n = 40, 256
+    xyz1, xyz2 = _loss_clouds(b, n, n, seed=12, keep=0.6)
+    assert emd.cluster_size('emd_loss', 1, n, n) == 8
+    assert emd.cluster_size('emd_loss', b, n, n) < 8
+    batch = emd.emd_loss_accumulators(xyz1, xyz2)
+    k1 = emd.emd_cost_fused(xyz1, xyz2)
+    np.testing.assert_allclose(k1.cpu().numpy(), batch[0].cpu().numpy(),
+                               rtol=1e-6)
+    for i in (0, 17, b - 1):
+        alone = emd.emd_loss_accumulators(xyz1[i:i + 1], xyz2[i:i + 1])
+        for got, want in zip(alone[1:], batch[1:]):
+            assert torch.equal(got[0], want[i])
+        np.testing.assert_allclose(alone[0].cpu().numpy(),
+                                   batch[0][i:i + 1].cpu().numpy(), rtol=1e-6)
+        np.testing.assert_allclose(
+            emd.emd_cost_fused(xyz1[i:i + 1], xyz2[i:i + 1]).cpu().numpy(),
+            k1[i:i + 1].cpu().numpy(), rtol=1e-6)
