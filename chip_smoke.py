@@ -44,6 +44,18 @@ Phases, any failure of which exits non-zero:
    zeroed, five timed steps, counts read; then one profiled step each,
    and K2 against its plain version and float64 on the clouds of a
    train-mode forward of the 'emd' run.
+9. train loop: the training CLI (``python -m monopsr_torch.experiments
+   .run_training``) on configs/monopsr_model_000.yaml, copied by text
+   substitution to build/chip_smoke/chip_smoke_train.yaml with the KITTI
+   fixture's paths, seed 0, 4 steps, a summary every step and a
+   checkpoint every 2; production widths and depth. data/outputs/
+   chip_smoke_train/ is removed first. Then the same with 6 steps, which
+   must resume from the step-4 checkpoint. The losses of every step are
+   finite, checkpoints land at 2, 4 and 6. Printed: the loop's ms/step,
+   the host loader's ms per sample (PNG decode, sample assembly,
+   prepare_sample) over every fixture train sample, checkpoint bytes and
+   save/restore seconds, and the seconds from the CLI's start to its
+   first step. The phase's outputs are removed at its end.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -52,14 +64,21 @@ The line before the last is the kernels' JSON record; the last line is
 import argparse
 import ctypes
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
+import monopsr_torch
+from monopsr_torch import config as config_lib
 from monopsr_torch import constants as C
+from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
 from monopsr_torch.eval import evaluator
 from monopsr_torch.geometry import class_stats
 from monopsr_torch.models import monopsr
@@ -68,6 +87,7 @@ from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer
+from monopsr_torch.utils import image_io
 
 EVAL_BATCH = 4     # configs/monopsr_model_000.yaml train_config.eval_batch
 TRAIN_BATCH = 1    # configs/monopsr_model_000.yaml train_config.batch_size
@@ -943,6 +963,208 @@ def main_path_train(seed):
     return report
 
 
+# --------------------------------------------------------------------------
+# Train loop: the training CLI on the KITTI fixture
+# --------------------------------------------------------------------------
+
+TRAIN_LOOP_NAME = 'chip_smoke_train'
+CLI_TIMEOUT_S = 600
+
+
+def train_loop_config(max_iterations):
+    """configs/monopsr_model_000.yaml with the fixture's dataset and
+    MSCNN paths, seed 0, ``max_iterations``, a summary every step and a
+    checkpoint every 2, written by text substitution (the card's machine
+    has no YAML library) to build/chip_smoke/<TRAIN_LOOP_NAME>.yaml.
+    Widths and depth stay the production config's."""
+    top = monopsr_torch.top_dir()
+    fixture = os.path.join(top, 'tests', 'datasets', 'Kitti', 'object')
+    with open(os.path.join(top, 'configs', 'monopsr_model_000.yaml')) as f:
+        text = f.read()
+    for key, value in (('dataset_dir', "'{}'".format(fixture)),
+                       ('seed', '0'),
+                       ('max_iterations', str(max_iterations)),
+                       ('summary_interval', '1'),
+                       ('checkpoint_interval', '2')):
+        text, n = re.subn(r'(?m)^(\s*{}:)[^#\n]*'.format(key),
+                          lambda m: m.group(1) + ' ' + value, text)
+        if n != 1:
+            fail('train loop: key {} found {} times in the config'.format(
+                key, n))
+    text = text.replace('    dataset_dir:', "    mscnn_dir: '{}'\n"
+                        "    dataset_dir:".format(
+                            os.path.join(fixture, 'mscnn')), 1)
+    out_dir = os.path.join(top, 'build', 'chip_smoke')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, TRAIN_LOOP_NAME + '.yaml')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def run_training_cli(config_path):
+    """Runs the training CLI on the card in a subprocess; returns its
+    printed lines and the seconds from its start to its first step
+    line. Killed after CLI_TIMEOUT_S."""
+    cmd = [sys.executable, '-u', '-m', 'monopsr_torch.experiments.'
+           'run_training', '--config_path', config_path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=monopsr_torch.top_dir(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    timer = threading.Timer(CLI_TIMEOUT_S, proc.kill)
+    timer.start()
+    lines, first_step_s = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip('\n'))
+            if first_step_s is None and line.startswith('step '):
+                first_step_s = time.perf_counter() - t0
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        print('\n'.join(lines[-40:]), file=sys.stderr)
+        fail('train loop: the training CLI exited {}'.format(rc))
+    return lines, first_step_s
+
+
+def loader_times(config_path):
+    """The host loader's ms per sample over every fixture train sample,
+    on this process's one thread: the PNG decodes inside get_sample_dict
+    (timed by wrapping image_io.read_png, which the dataset layer calls),
+    the rest of the sample's assembly (get_sample_dict less its decodes),
+    and prepare_sample (resize and encodings) of the valid samples."""
+    config = config_lib.parse_yaml_config(config_path)
+    dataset = KittiDataset(config.dataset_config, 'train')
+    shape = tuple(config.model_config.image_input_shape)
+    read_png, decoding = image_io.read_png, []
+
+    def timed_read_png(path):
+        t0 = time.perf_counter()
+        try:
+            return read_png(path)
+        finally:
+            decoding.append(time.perf_counter() - t0)
+
+    decode, assembly, prepare = [], [], []
+    image_io.read_png = timed_read_png
+    try:
+        for i in range(dataset.num_samples):
+            del decoding[:]
+            t0 = time.perf_counter()
+            sample, = dataset.get_sample_dict([i])
+            t1 = time.perf_counter()
+            decode.append(sum(decoding) * 1e3)
+            assembly.append((t1 - t0) * 1e3 - decode[-1])
+            if sample is not None:
+                trainer.prepare_sample(sample, shape)
+                prepare.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        image_io.read_png = read_png
+    # what one thread spends per sample it hands to the step (samples
+    # without a valid object are read and dropped)
+    delivered = (sum(decode) + sum(assembly) + sum(prepare)) / len(prepare)
+    return dict(samples=len(decode), valid=len(prepare),
+                decode_ms=float(np.mean(decode)),
+                assembly_ms=float(np.mean(assembly)),
+                prepare_ms=float(np.mean(prepare)),
+                ms_per_delivered_sample=float(delivered))
+
+
+def read_train_log(config):
+    with open(os.path.join(config.logdir, 'train_log.jsonl')) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_loop_phase(card):
+    """The training CLI at production width on the fixture: 4 steps with
+    checkpoints at 2 and 4, then a second call with 6 steps that resumes
+    from 4. Fails unless both exit 0, every step's losses are finite,
+    the second call restores step 4 and logs 5 and 6 only, and the
+    checkpoints are at 2, 4 and 6."""
+    config_path = train_loop_config(4)
+    config = config_lib.parse_yaml_config(config_path)
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    report = {}
+    try:
+        lines1, start1 = run_training_cli(config_path)
+        log1 = read_train_log(config)
+        manager = trainer.CheckpointManager(config.checkpoint_dir)
+        if manager.all_steps() != [2, 4]:
+            fail('train loop: checkpoints {} after 4 steps'.format(
+                manager.all_steps()))
+        lines2, start2 = run_training_cli(train_loop_config(6))
+        log2 = read_train_log(config)[len(log1):]
+        if manager.all_steps() != [2, 4, 6]:
+            fail('train loop: checkpoints {} after the resumed run'.format(
+                manager.all_steps()))
+        if not any(line.startswith('restored checkpoint 4 ')
+                   for line in lines2):
+            fail('train loop: the second call did not restore step 4')
+        steps = {}
+        for part, want in ((log1, [1, 2, 3, 4]), (log2, [5, 6])):
+            records = [r for r in part if 'total_loss' in r]
+            if [r['step'] for r in records] != want:
+                fail('train loop: logged steps {}, want {}'.format(
+                    [r['step'] for r in records], want))
+            for r in records:
+                if not all(np.isfinite(v) for v in r.values()):
+                    fail('train loop: step {} logged {}'.format(r['step'], r))
+                steps[r['step']] = r
+        saves = [re.match(r'checkpoint (\d+): (\d+) bytes in ([0-9.]+) s',
+                          line) for line in lines1 + lines2]
+        saves = [(int(m.group(1)), int(m.group(2)), float(m.group(3)))
+                 for m in saves if m]
+        restore_s = [float(re.match(r'restored checkpoint 4 in ([0-9.]+) s',
+                                    line).group(1))
+                     for line in lines2 if line.startswith('restored')][0]
+        memory = [r for r in log1 if any(k.startswith('bytes_in_use')
+                                         for k in r)]
+        ms = {k: 1e3 / r['steps_per_sec'] for k, r in steps.items()}
+        loader = loader_times(config_path)
+        report = dict(
+            ms_per_step={k: round(v, 3) for k, v in ms.items()},
+            steady_ms_per_step=float(np.median([ms[2], ms[4], ms[6]])),
+            total_loss={k: round(r['total_loss'], 4)
+                        for k, r in steps.items()},
+            checkpoint_bytes=saves[0][1],
+            save_s=[s[2] for s in saves], restore_s=restore_s,
+            start_to_first_step_s=[start1, start2],
+            bytes_in_use_at_start=memory[0] if memory else None,
+            loader=loader)
+        print('train loop (run_training CLI, production width, KITTI '
+              'fixture, seed 0): steps 1-4, then resumed at 4 for 5-6; '
+              'checkpoints {}; total_loss {}'.format(
+                  manager.all_steps(), report['total_loss']))
+        print('train loop: wall ms/step from steps_per_sec {} (steps 1 and '
+              '5 are each call\'s first, 3 and 5 include the previous '
+              'checkpoint\'s save); steady (steps 2, 4, 6) {:.3f} ms; '
+              '{}'.format(report['ms_per_step'],
+                          report['steady_ms_per_step'], card))
+        print('train loop: checkpoint {} bytes, saves {} s, restore {:.3f} '
+              's; seconds from the CLI\'s start to its first step {}; {}'
+              .format(report['checkpoint_bytes'], report['save_s'],
+                      restore_s, ['{:.1f}'.format(x) for x in
+                                  report['start_to_first_step_s']], card))
+        print('train loop: host loader, one thread, per sample over the {} '
+              'fixture train samples: PNG decode {:.3f} ms, assembly {:.3f} '
+              'ms; prepare_sample {:.3f} ms per valid sample ({}); {:.3f} ms '
+              'per sample delivered to the step ({})'.format(
+                  loader['samples'], loader['decode_ms'],
+                  loader['assembly_ms'], loader['prepare_ms'],
+                  loader['valid'], loader['ms_per_delivered_sample'], card))
+        print('train loop: emd kernels on this path: none (the production '
+              'loss_config runs no EMD loss; K1 runs in val-mode eval only)')
+    finally:
+        shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    return report
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -986,6 +1208,7 @@ def main():
                          ('K2 train step, masked, drawn apart', apart2)])
     train_reference(args.seed)
     train_report = main_path_train(args.seed)
+    loop_report = train_loop_phase(card)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -1047,6 +1270,7 @@ def main():
           '(train batch {}, {})'.format(
               train_report['production loss']['ms'],
               train_report['emd loss']['ms'], TRAIN_BATCH, card))
+    print('train loop: ' + json.dumps(loop_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

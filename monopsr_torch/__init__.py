@@ -11,4 +11,24 @@ Entry points run on CUDA unless the caller passes ``device='cpu'``
 (see ``monopsr_torch.utils.device``). The Pallas kernels of the JAX
 package become hand-written CUDA kernels under ``csrc/``, built with
 nvcc at first use (``monopsr_torch.ops.cuda_build``).
+
+Path helpers as in the JAX package: every output location derives from
+``<repo>/data/outputs/<config_name>/...``.
 """
+
+import os
+
+
+def root_dir():
+    """Directory of the monopsr_torch package."""
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def top_dir():
+    """Repository root (one level above the package)."""
+    return os.path.dirname(root_dir())
+
+
+def data_dir():
+    """Data directory (detections, pretrained weights, outputs)."""
+    return os.path.join(top_dir(), 'data')

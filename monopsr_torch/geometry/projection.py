@@ -1,15 +1,25 @@
-"""Camera projection and depth-patch backprojection, torch.
+"""Camera projection and depth-patch backprojection, torch and numpy.
 
-Counterpart of the device-side half of
-``monopsr_tpu/geometry/projection.py``. The JAX functions take one
-sample's box axis and a (3, 4) camera; here ``depth_patch_to_pc_map_batch``
-takes a leading image axis B with one (3, 4) camera per image, and
-the other two broadcast over any leading axes.
+Counterpart of ``monopsr_tpu/geometry/projection.py``: its device-side
+half, and ``np_project_pc_to_image`` for the host dataset layer. The JAX
+functions take one sample's box axis and a (3, 4) camera; here
+``depth_patch_to_pc_map_batch`` takes a leading image axis B with one
+(3, 4) camera per image, and the other two broadcast over any leading
+axes.
 """
 
+import numpy as np
 import torch
 
 from monopsr_torch.utils.grids import linspace
+
+
+def np_project_pc_to_image(point_cloud, cam_p):
+    """Projects a (3, N) point cloud to (2, N) [u, v] image points."""
+    pc_padded = np.append(
+        point_cloud, np.ones((1, point_cloud.shape[1])), axis=0)
+    pts = cam_p @ pc_padded
+    return pts[0:2] / pts[2]
 
 
 def project_pc_to_image_batch(point_cloud, cam_p, min_depth=1e-3):

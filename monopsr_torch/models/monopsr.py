@@ -30,6 +30,15 @@ def create_net(cfg: NetConfig, device=None, seed=0):
     return net.to(device).eval()
 
 
+def create_net_from_config(model_config, dataset_config, device=None,
+                           seed=0):
+    """(net, cfg) from a parsed YAML config's model_config and
+    dataset_config, as the JAX package's ``create_net`` builds them; the
+    weights as ``create_net`` draws them."""
+    cfg = NetConfig.from_model_config(model_config, dataset_config)
+    return create_net(cfg, device=device, seed=seed), cfg
+
+
 def decode_device_sample(batch):
     """Upcasts compactly-encoded device inputs to compute dtypes.
 

@@ -75,6 +75,59 @@ class NetConfig:
         return (torch.bfloat16 if self.compute_dtype == 'bfloat16'
                 else torch.float32)
 
+    @staticmethod
+    def from_model_config(model_config, dataset_config):
+        """The NetConfig of a parsed YAML config's model_config and
+        dataset_config (``config.parse_yaml_config``)."""
+        oc = model_config.output_config
+        return NetConfig(
+            num_boxes=dataset_config.num_boxes,
+            num_alpha_bins=dataset_config.num_alpha_bins,
+            num_classes=len(dataset_config.classes),
+            image_input_shape=tuple(model_config.image_input_shape),
+            resized_full_img_shape=tuple(
+                model_config.resized_full_img_shape),
+            img_roi_size=tuple(model_config.img_roi_size),
+            map_roi_size=tuple(model_config.map_roi_size),
+            proposal_fc_sizes=tuple(
+                model_config.proposal_fc_layers.layer_sizes),
+            regression_fc_sizes=tuple(
+                model_config.regression_fc_layers.layer_sizes),
+            dropout_keep_prob=float(
+                model_config.proposal_fc_layers.dropout_keep_prob),
+            max_depth=float(
+                dataset_config.obj_filter_config.depth_range[1]),
+            mean_sub_type=model_config.mean_sub_type,
+            compute_dtype=model_config.get('compute_dtype', 'bfloat16'),
+            resnet=model_config.get('resnet', 'resnet101'),
+            output_stride=model_config.get('output_stride', 4),
+            remat_towers=bool(model_config.get('remat_towers', False)),
+            remat_policy=str(model_config.get('remat_policy', 'unit')),
+            lwh_type=oc.lwh,
+            alpha_type=oc.alpha,
+            view_ang_type=oc.view_ang,
+            cen_y_type=oc.cen_y,
+            cen_z_type=oc.cen_z,
+            rotate_view=model_config.rotate_view,
+            centroid_type=model_config.centroid_type,
+            xyz_from_depth=bool(
+                oc.get('inst_xyz_map_global_from_depth')),
+            appended_est_norm=_appended_norm_mode(
+                model_config.get('normalize_appended_ests', True)),
+            class_names=tuple(dataset_config.classes),
+        )
+
+
+def _appended_norm_mode(value):
+    """Maps the YAML normalize_appended_ests value to a mode string."""
+    if value is True:
+        return 'constant'
+    if value in (False, None):
+        return 'none'
+    if value in ('constant', 'by_class_mean', 'none'):
+        return value
+    raise ValueError('Invalid normalize_appended_ests: ' + repr(value))
+
 
 def _box_feature_concat(boxes_2d, view_angs, class_indices, cam_p,
                         image_shape, num_classes):

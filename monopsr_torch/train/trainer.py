@@ -1,18 +1,82 @@
-"""Train step: forward, GT, losses, backward, optimizer update.
+"""Training: host collation, train step, checkpoints, resume, the loop.
 
-Counterpart of ``make_train_step`` in ``monopsr_tpu/train/trainer.py``
-(with ``create_train_state`` for ``TrainState.create``). The JAX step
-vmaps GT assembly and the losses over the images; here they take the
-image axis directly. The host side of training (``prepare_sample``, the
-loop with its checkpoints and resume, the scalar log) is not ported yet.
+Counterpart of ``monopsr_tpu/train/trainer.py``: global-norm clip 1.0,
+Adam with staircase exponential decay, EMA weights, a checkpoint every
+``checkpoint_interval`` and at the last step, automatic resume from the
+latest checkpoint unless ``overwrite_checkpoints``, loss scalars every
+``summary_interval`` to a JSONL log.
+
+The JAX step vmaps GT assembly and the losses over the images; here they
+take the image axis directly (``make_train_step``; ``create_train_state``
+for ``TrainState.create``). Where the JAX loop leans on a TPU mechanism:
+
+- checkpoints are ``torch.save`` files in place of Orbax, one directory
+  per step under ``checkpoint_dir`` as Orbax lays them out;
+- ``steps_per_dispatch`` (K steps in one device program) has no
+  counterpart: steps run one by one, and the log is the JAX loop's at
+  K = 1;
+- ``data_parallel > 1`` and ``summary_images`` raise NotImplementedError
+  (ROADMAP M16 and M18).
 """
 
+import json
+import os
+import time
+
+import numpy as np
 import torch
 
+from monopsr_torch import constants as C
 from monopsr_torch.eval import evaluator
 from monopsr_torch.models import monopsr
+from monopsr_torch.train import optimizer as opt_lib
+from monopsr_torch.train import pretrained
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
+from monopsr_torch.utils import image_io, tb_events
+
+# Batch keys shipped to the device for training
+DEVICE_KEYS = (
+    'image',
+    C.SAMPLE_LABEL_BOXES_2D, C.SAMPLE_LABEL_BOXES_2D_NORM,
+    C.SAMPLE_LABEL_BOXES_3D,
+    C.SAMPLE_VIEWING_ANGLES_2D, C.SAMPLE_VIEWING_ANGLES_3D,
+    C.SAMPLE_LABEL_CLASS_INDICES, C.SAMPLE_MEAN_LWH,
+    C.SAMPLE_PROP_CEN_Z_OFFSET, C.SAMPLE_CEN_Y_OFFSETS,
+    C.SAMPLE_CAM_P, C.SAMPLE_DEPTH_MAP,
+    C.SAMPLE_INSTANCE_IMAGE, C.SAMPLE_INSTANCE_INDICES,
+    C.SAMPLE_ALPHAS, C.SAMPLE_ALPHA_BINS, C.SAMPLE_ALPHA_REGS,
+    C.SAMPLE_ALPHA_VALID_BINS,
+)
+
+CHECKPOINT_FILE = 'train_state.pt'
+
+
+def prepare_sample(sample_dict, image_input_shape):
+    """Host-side collation: resize the image, keep device keys only.
+
+    The resize runs here on the host (resize and the mean subtraction
+    commute for a linear resampler; the subtraction stays on the device).
+    The big arrays ship in compact encodings, decoded by
+    ``monopsr.decode_device_sample``: the uint8 image resized by
+    OpenCV's fixed-point INTER_LINEAR (``image_io.resize_bilinear_uint8``),
+    the depth map as the uint16 metres*256 its png stores, the instance
+    image as uint8 indices (lossless, indices < 255).
+    """
+    out = {'image': image_io.resize_bilinear_uint8(
+        sample_dict[C.SAMPLE_IMAGE_INPUT], image_input_shape)}
+    for key in DEVICE_KEYS:
+        if key == 'image':
+            continue
+        if key in sample_dict:   # test mode carries no GT keys
+            out[key] = np.asarray(sample_dict[key])
+    if C.SAMPLE_DEPTH_MAP in out:
+        out[C.SAMPLE_DEPTH_MAP] = np.rint(
+            out[C.SAMPLE_DEPTH_MAP] * 256.0).astype(np.uint16)
+    if C.SAMPLE_INSTANCE_IMAGE in out:
+        out[C.SAMPLE_INSTANCE_IMAGE] = (
+            out[C.SAMPLE_INSTANCE_IMAGE].astype(np.uint8))
+    return out
 
 
 def create_train_state(net, tx, use_ema):
@@ -69,3 +133,250 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
         return state, {k: v.detach().mean() for k, v in losses.items()}
 
     return train_step
+
+
+class ScalarLogger:
+    """JSONL scalar sink, mirrored to TensorBoard events when
+    ``tensorboard`` is true and tensorboardX is installed."""
+
+    def __init__(self, logdir, filename='train_log.jsonl',
+                 tensorboard=True):
+        os.makedirs(logdir, exist_ok=True)
+        self.path = os.path.join(logdir, filename)
+        self.tb = tb_events.TBWriter(logdir, enabled=tensorboard)
+
+    def log(self, step, scalars):
+        record = {'step': int(step)}
+        record.update({k: float(v) for k, v in scalars.items()})
+        with open(self.path, 'a') as f:
+            f.write(json.dumps(record) + '\n')
+        self.tb.scalars(step, record)
+
+    def close(self):
+        self.tb.close()
+
+
+# --------------------------------------------------------------------------
+# Checkpoints
+# --------------------------------------------------------------------------
+
+class CheckpointManager:
+    """Checkpoints under ``directory``, one sub-directory per step (as
+    Orbax lays them out, so a poller lists them the same way), each
+    holding ``CHECKPOINT_FILE``. Only the newest ``max_to_keep`` stay."""
+
+    def __init__(self, directory, max_to_keep=10000):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step):
+        return os.path.join(self.directory, str(int(step)), CHECKPOINT_FILE)
+
+    def all_steps(self):
+        """Steps with a complete checkpoint, ascending."""
+        return sorted(int(name) for name in os.listdir(self.directory)
+                      if name.isdigit() and os.path.exists(self.path(name)))
+
+    def latest_step(self):
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+
+def save_checkpoint(manager, state, step):
+    """Writes the TrainState (step, params, batch stats, optimizer state,
+    EMA) with ``torch.save`` under a temporary name, renames it into
+    place, then prunes to ``max_to_keep``. A reader never sees half a
+    file: the file it lists is complete or absent."""
+    path = manager.path(step)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + '.tmp'
+    torch.save({'step': int(step),
+                'params': {k: v.detach() for k, v in state.params.items()},
+                'batch_stats': state.batch_stats,
+                'opt_state': state.opt_state,
+                'ema_params': state.ema_params}, tmp)
+    os.replace(tmp, path)
+    steps = manager.all_steps()
+    if manager.max_to_keep:
+        for old in steps[:-manager.max_to_keep]:
+            os.remove(manager.path(old))
+            os.rmdir(os.path.dirname(manager.path(old)))
+
+
+def _same_keys(what, got, want):
+    if (got is None) != (want is None) or (
+            got is not None and set(got) != set(want)):
+        raise ValueError('checkpoint {} do not match the train state'.format(
+            what))
+
+
+def restore_latest(manager, state):
+    """Restores the latest checkpoint into ``state`` in place (the net's
+    parameters and buffers are copied into, the optimizer state replaced)
+    and returns (state, step), or (state, 0) when there is none."""
+    latest = manager.latest_step()
+    if latest is None:
+        return state, 0
+    device = next(iter(state.params.values())).device
+    saved = torch.load(manager.path(latest), map_location=device,
+                       weights_only=True)
+    for part in ('params', 'batch_stats', 'ema_params'):
+        _same_keys(part, saved[part], getattr(state, part))
+    _same_keys('optimizer state', saved['opt_state'], state.opt_state)
+    with torch.no_grad():
+        for part in ('params', 'batch_stats', 'ema_params'):
+            target = getattr(state, part) or {}
+            for key, value in target.items():
+                value.copy_(saved[part][key])
+    state.opt_state = saved['opt_state']
+    state.step = int(saved['step'])
+    return state, latest
+
+
+# --------------------------------------------------------------------------
+# The loop
+# --------------------------------------------------------------------------
+
+def _log_device_memory(logger, step, device):
+    """Device memory once at start (the reference logs GPU memory)."""
+    if device.type == 'cuda':
+        index = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        logger.log(step, {'bytes_in_use_cuda_{}'.format(index):
+                          torch.cuda.memory_allocated(index)})
+
+
+def _profiled_step(train_step, state, batch, logdir, step, device):
+    """One train step under torch.profiler; the trace goes to
+    <logdir>/profile/train_step_<step>.json."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        state, losses = train_step(state, batch)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+    out_dir = os.path.join(logdir, 'profile')
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        out_dir, 'train_step_{}.json'.format(step)))
+    return state, losses
+
+
+def train(config, dataset, max_steps=None, log_every=None, device=None):
+    """Full training loop driven by a parsed YAML config.
+
+    Args:
+        config: parsed experiment config (config.parse_yaml_config).
+        dataset: KittiDataset in 'train' mode.
+        max_steps: optional override of train_config.max_iterations.
+        log_every: optional override of summary_interval.
+        device: CUDA unless 'cpu' is asked for; raises when CUDA is asked
+            for and absent.
+
+    Returns:
+        final TrainState.
+    """
+    device = device_lib.resolve_device(device)
+    train_config = config.train_config
+    model_config = config.model_config
+    dataset_config = config.dataset_config
+
+    if int(train_config.get('data_parallel', 1) or 1) > 1:
+        raise NotImplementedError(
+            'data_parallel > 1 is not ported yet (ROADMAP M16)')
+    if bool(config.get('summary_images', False)):
+        raise NotImplementedError(
+            'summary_images needs a PNG writer, not ported yet '
+            '(ROADMAP M18)')
+
+    net, cfg = monopsr.create_net_from_config(model_config, dataset_config,
+                                              device=device, seed=0)
+    loss_config = model_config.loss_config.to_dict()
+    tx, schedule, use_ema, ema_decay = opt_lib.build_optimizer(
+        train_config.to_dict(), clip_gradient_norm=1.0)
+
+    # The JAX loop initialises its net on the first valid sample; that
+    # read sets the dataset's position (and skips the first-epoch
+    # shuffle), so it is made here too, for the same order of samples.
+    _skip_first_valid_sample(dataset)
+
+    train_step = make_train_step(net, cfg, loss_config, tx, use_ema,
+                                 ema_decay, device=device)
+    state = create_train_state(net, tx, use_ema)
+    pretrained.maybe_load_pretrained(state, model_config)
+
+    manager = CheckpointManager(
+        config.checkpoint_dir,
+        max_to_keep=train_config.max_checkpoints_to_keep)
+    if not train_config.get('overwrite_checkpoints', False):
+        t0 = time.perf_counter()
+        state, start_step = restore_latest(manager, state)
+        if start_step:
+            print('restored checkpoint {} in {:.3f} s'.format(
+                start_step, time.perf_counter() - t0))
+    else:
+        start_step = 0
+
+    logger = ScalarLogger(
+        config.logdir,
+        tensorboard=bool(train_config.get('tensorboard', True)))
+    max_iterations = max_steps or train_config.max_iterations
+    summary_interval = log_every or train_config.summary_interval
+    checkpoint_interval = train_config.checkpoint_interval
+    batch_size = max(1, int(train_config.get('batch_size', 1) or 1))
+    profile_step = train_config.get('profile_step')
+
+    from monopsr_torch.train.input_pipeline import PrefetchingLoader
+    loader = PrefetchingLoader(
+        dataset, batch_size, cfg.image_input_shape,
+        queue_depth=int(train_config.get('prefetch_depth', 4) or 4),
+        num_threads=int(train_config.get('prefetch_threads', 2) or 2))
+    try:
+        _log_device_memory(logger, start_step, device)
+        last_time = time.time()
+        step = start_step
+        last_log_step = start_step
+        while step < max_iterations:
+            batch = loader.get_batch()
+            if profile_step is not None and step + 1 == int(profile_step):
+                state, losses = _profiled_step(train_step, state, batch,
+                                               config.logdir, step + 1,
+                                               device)
+            else:
+                state, losses = train_step(state, batch)
+            step += 1
+
+            if step % summary_interval == 0:
+                scalars = {k: float(v) for k, v in losses.items()}
+                scalars['learning_rate'] = float(schedule(step))
+                scalars['steps_per_sec'] = (
+                    (step - last_log_step) / (time.time() - last_time))
+                last_time = time.time()
+                last_log_step = step
+                logger.log(step, scalars)
+                print('step {:6d}  total {:.4f}  {:.2f} steps/s'.format(
+                    step, scalars['total_loss'], scalars['steps_per_sec']))
+
+            if step % checkpoint_interval == 0 or step == max_iterations:
+                t0 = time.perf_counter()
+                save_checkpoint(manager, state, step)
+                print('checkpoint {}: {} bytes in {:.3f} s'.format(
+                    step, os.path.getsize(manager.path(step)),
+                    time.perf_counter() - t0))
+    finally:
+        loader.stop()
+        logger.close()
+    return state
+
+
+def _skip_first_valid_sample(dataset):
+    """Reads up to the first valid sample, as the JAX loop does for its
+    init (the net here is built from a seed, so the sample is dropped)."""
+    for _ in range(dataset.num_samples + 1):
+        batch = dataset.next_batch(1, shuffle=False)
+        if batch and batch[0] is not None:
+            return
+    raise RuntimeError('Dataset produced no valid samples')

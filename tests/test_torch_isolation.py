@@ -30,14 +30,15 @@ print(len(names), leaked)
 
 
 def test_package_imports_without_jax_or_reference():
-    """Every module of the port, the train modules included (and
-    chip_smoke.py), imports with jax, flax, optax, cv2, PIL, yaml and
-    monopsr_tpu made unimportable."""
+    """Every module of the port, the train modules, the config reader,
+    the KITTI dataset layer and the CLI included (and chip_smoke.py),
+    imports with jax, flax, optax, cv2, PIL, yaml and monopsr_tpu made
+    unimportable."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 24
+    assert int(count) >= 46
     assert leaked.strip() == '[]'
 
 
@@ -79,6 +80,17 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     assert device.resolve_device('cpu') == torch.device('cpu')
     with pytest.raises(ValueError):
         evaluator.make_eval_step(net, cfg, {}, 'train', device='cpu')
+
+    # The training loop and its CLI: CUDA unless the CPU is asked for
+    from monopsr_torch.config import ConfigObj
+    from monopsr_torch.experiments import run_training
+    with pytest.raises(RuntimeError, match='CUDA'):
+        trainer.train(ConfigObj({}), None)
+    production = os.path.join(REPO, 'configs', 'monopsr_model_000.yaml')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        run_training.main(['--config_path', production])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        run_training.main(['--config_path', production, '--device', 'cuda'])
 
 
 def test_kernel_wrapper_refuses_other_devices():
