@@ -55,7 +55,24 @@ Phases, any failure of which exits non-zero:
    the host loader's ms per sample (PNG decode, sample assembly,
    prepare_sample) over every fixture train sample, checkpoint bytes and
    save/restore seconds, and the seconds from the CLI's start to its
-   first step. The phase's outputs are removed at its end.
+   first step. The phase's checkpoints stay for phase 11.
+10. eval reference: the port's ``Evaluator`` on a tiny float32 copy of
+   the production config on the fixture's val split, at eval batch 3,
+   from one seeded checkpoint written by ``save_checkpoint``, on the card
+   and on the CPU: box_3d txts within 1e-4, each box's EMD metric (K1
+   on the card, the plain version on the CPU) within 1e-4 relative, and
+   K1 launched once per dispatch group.
+11. eval CLIs: ``python -m monopsr_torch.experiments.run_evaluation``
+   (val split, native AP on) over phase 9's production-width checkpoints
+   2, 4 and 6, then ``run_inference`` at step 6 on the val and the test
+   split, each in a subprocess. Every output is checked: the ledger, a
+   box_3d txt per valid sample, KITTI files of 16-field CRLF rows,
+   metrics CSVs, finite losses, AP lines per step in both results
+   files, a KITTI file per test sample, and K1 launched once per group
+   (its count printed by the evaluator). Printed: ms per image, feed and
+   inference medians, seconds to the first sample, restore and
+   native-eval seconds, the AP lines of step 6. data/outputs/
+   chip_smoke_train/ is removed at its end.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -87,6 +104,7 @@ from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer
+from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import image_io
 
 EVAL_BATCH = 4     # configs/monopsr_model_000.yaml train_config.eval_batch
@@ -971,55 +989,61 @@ TRAIN_LOOP_NAME = 'chip_smoke_train'
 CLI_TIMEOUT_S = 600
 
 
-def train_loop_config(max_iterations):
-    """configs/monopsr_model_000.yaml with the fixture's dataset and
-    MSCNN paths, seed 0, ``max_iterations``, a summary every step and a
-    checkpoint every 2, written by text substitution (the card's machine
-    has no YAML library) to build/chip_smoke/<TRAIN_LOOP_NAME>.yaml.
-    Widths and depth stay the production config's."""
+def production_yaml(name, subs):
+    """configs/monopsr_model_000.yaml with the fixture's dataset and MSCNN
+    paths and the (key, value, times) substitutions ``subs``, written by
+    text substitution (the card's machine has no YAML library) to
+    build/chip_smoke/<name>.yaml; returns the path."""
     top = monopsr_torch.top_dir()
     fixture = os.path.join(top, 'tests', 'datasets', 'Kitti', 'object')
     with open(os.path.join(top, 'configs', 'monopsr_model_000.yaml')) as f:
         text = f.read()
-    for key, value in (('dataset_dir', "'{}'".format(fixture)),
-                       ('seed', '0'),
-                       ('max_iterations', str(max_iterations)),
-                       ('summary_interval', '1'),
-                       ('checkpoint_interval', '2')):
+    for key, value, times in [('dataset_dir', "'{}'".format(fixture), 1)] + \
+            list(subs):
         text, n = re.subn(r'(?m)^(\s*{}:)[^#\n]*'.format(key),
                           lambda m: m.group(1) + ' ' + value, text)
-        if n != 1:
-            fail('train loop: key {} found {} times in the config'.format(
-                key, n))
+        if n != times:
+            fail('config {}: key {} found {} times, want {}'.format(
+                name, key, n, times))
     text = text.replace('    dataset_dir:', "    mscnn_dir: '{}'\n"
                         "    dataset_dir:".format(
                             os.path.join(fixture, 'mscnn')), 1)
     out_dir = os.path.join(top, 'build', 'chip_smoke')
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, TRAIN_LOOP_NAME + '.yaml')
+    path = os.path.join(out_dir, name + '.yaml')
     with open(path, 'w') as f:
         f.write(text)
     return path
 
 
-def run_training_cli(config_path):
-    """Runs the training CLI on the card in a subprocess; returns its
-    printed lines and the seconds from its start to its first step
-    line. Killed after CLI_TIMEOUT_S."""
-    cmd = [sys.executable, '-u', '-m', 'monopsr_torch.experiments.'
-           'run_training', '--config_path', config_path]
+def train_loop_config(max_iterations):
+    """The production config at full width and depth with seed 0,
+    ``max_iterations``, a summary every step and a checkpoint every 2, in
+    build/chip_smoke/<TRAIN_LOOP_NAME>.yaml."""
+    return production_yaml(TRAIN_LOOP_NAME, [
+        ('seed', '0', 1), ('max_iterations', str(max_iterations), 1),
+        ('summary_interval', '1', 1), ('checkpoint_interval', '2', 1)])
+
+
+def run_cli(module, args, first_prefix):
+    """Runs ``python -m monopsr_torch.experiments.<module> <args>`` on the
+    card in a subprocess; returns its printed lines and the seconds from
+    its start to its first line starting with ``first_prefix`` (None if
+    none). Killed after CLI_TIMEOUT_S; fails unless it exits 0."""
+    cmd = [sys.executable, '-u', '-m',
+           'monopsr_torch.experiments.' + module] + list(args)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=monopsr_torch.top_dir(),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     timer = threading.Timer(CLI_TIMEOUT_S, proc.kill)
     timer.start()
-    lines, first_step_s = [], None
+    lines, first_s = [], None
     try:
         for line in proc.stdout:
             lines.append(line.rstrip('\n'))
-            if first_step_s is None and line.startswith('step '):
-                first_step_s = time.perf_counter() - t0
+            if first_s is None and line.startswith(first_prefix):
+                first_s = time.perf_counter() - t0
         rc = proc.wait()
     finally:
         timer.cancel()
@@ -1028,8 +1052,14 @@ def run_training_cli(config_path):
             proc.wait()
     if rc != 0:
         print('\n'.join(lines[-40:]), file=sys.stderr)
-        fail('train loop: the training CLI exited {}'.format(rc))
-    return lines, first_step_s
+        fail('{}: the CLI exited {} ({})'.format(module, rc, ' '.join(args)))
+    return lines, first_s
+
+
+def run_training_cli(config_path):
+    """The training CLI on the card; its lines and the seconds from its
+    start to its first step line."""
+    return run_cli('run_training', ['--config_path', config_path], 'step ')
 
 
 def loader_times(config_path):
@@ -1085,83 +1115,364 @@ def train_loop_phase(card):
     checkpoints at 2 and 4, then a second call with 6 steps that resumes
     from 4. Fails unless both exit 0, every step's losses are finite,
     the second call restores step 4 and logs 5 and 6 only, and the
-    checkpoints are at 2, 4 and 6."""
+    checkpoints are at 2, 4 and 6. The outputs stay for the eval CLI
+    phase (``main`` removes them after it)."""
     config_path = train_loop_config(4)
     config = config_lib.parse_yaml_config(config_path)
-    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
     torch.cuda.empty_cache()
-    report = {}
-    try:
-        lines1, start1 = run_training_cli(config_path)
-        log1 = read_train_log(config)
-        manager = trainer.CheckpointManager(config.checkpoint_dir)
-        if manager.all_steps() != [2, 4]:
-            fail('train loop: checkpoints {} after 4 steps'.format(
-                manager.all_steps()))
-        lines2, start2 = run_training_cli(train_loop_config(6))
-        log2 = read_train_log(config)[len(log1):]
-        if manager.all_steps() != [2, 4, 6]:
-            fail('train loop: checkpoints {} after the resumed run'.format(
-                manager.all_steps()))
-        if not any(line.startswith('restored checkpoint 4 ')
-                   for line in lines2):
-            fail('train loop: the second call did not restore step 4')
-        steps = {}
-        for part, want in ((log1, [1, 2, 3, 4]), (log2, [5, 6])):
-            records = [r for r in part if 'total_loss' in r]
-            if [r['step'] for r in records] != want:
-                fail('train loop: logged steps {}, want {}'.format(
-                    [r['step'] for r in records], want))
-            for r in records:
-                if not all(np.isfinite(v) for v in r.values()):
-                    fail('train loop: step {} logged {}'.format(r['step'], r))
-                steps[r['step']] = r
-        saves = [re.match(r'checkpoint (\d+): (\d+) bytes in ([0-9.]+) s',
-                          line) for line in lines1 + lines2]
-        saves = [(int(m.group(1)), int(m.group(2)), float(m.group(3)))
-                 for m in saves if m]
-        restore_s = [float(re.match(r'restored checkpoint 4 in ([0-9.]+) s',
-                                    line).group(1))
-                     for line in lines2 if line.startswith('restored')][0]
-        memory = [r for r in log1 if any(k.startswith('bytes_in_use')
-                                         for k in r)]
-        ms = {k: 1e3 / r['steps_per_sec'] for k, r in steps.items()}
-        loader = loader_times(config_path)
-        report = dict(
-            ms_per_step={k: round(v, 3) for k, v in ms.items()},
-            steady_ms_per_step=float(np.median([ms[2], ms[4], ms[6]])),
-            total_loss={k: round(r['total_loss'], 4)
-                        for k, r in steps.items()},
-            checkpoint_bytes=saves[0][1],
-            save_s=[s[2] for s in saves], restore_s=restore_s,
-            start_to_first_step_s=[start1, start2],
-            bytes_in_use_at_start=memory[0] if memory else None,
-            loader=loader)
-        print('train loop (run_training CLI, production width, KITTI '
-              'fixture, seed 0): steps 1-4, then resumed at 4 for 5-6; '
-              'checkpoints {}; total_loss {}'.format(
-                  manager.all_steps(), report['total_loss']))
-        print('train loop: wall ms/step from steps_per_sec {} (steps 1 and '
-              '5 are each call\'s first, 3 and 5 include the previous '
-              'checkpoint\'s save); steady (steps 2, 4, 6) {:.3f} ms; '
-              '{}'.format(report['ms_per_step'],
-                          report['steady_ms_per_step'], card))
-        print('train loop: checkpoint {} bytes, saves {} s, restore {:.3f} '
-              's; seconds from the CLI\'s start to its first step {}; {}'
-              .format(report['checkpoint_bytes'], report['save_s'],
-                      restore_s, ['{:.1f}'.format(x) for x in
-                                  report['start_to_first_step_s']], card))
-        print('train loop: host loader, one thread, per sample over the {} '
-              'fixture train samples: PNG decode {:.3f} ms, assembly {:.3f} '
-              'ms; prepare_sample {:.3f} ms per valid sample ({}); {:.3f} ms '
-              'per sample delivered to the step ({})'.format(
-                  loader['samples'], loader['decode_ms'],
-                  loader['assembly_ms'], loader['prepare_ms'],
-                  loader['valid'], loader['ms_per_delivered_sample'], card))
-        print('train loop: emd kernels on this path: none (the production '
-              'loss_config runs no EMD loss; K1 runs in val-mode eval only)')
-    finally:
-        shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    lines1, start1 = run_training_cli(config_path)
+    log1 = read_train_log(config)
+    manager = trainer.CheckpointManager(config.checkpoint_dir)
+    if manager.all_steps() != [2, 4]:
+        fail('train loop: checkpoints {} after 4 steps'.format(
+            manager.all_steps()))
+    lines2, start2 = run_training_cli(train_loop_config(6))
+    log2 = read_train_log(config)[len(log1):]
+    if manager.all_steps() != [2, 4, 6]:
+        fail('train loop: checkpoints {} after the resumed run'.format(
+            manager.all_steps()))
+    if not any(line.startswith('restored checkpoint 4 ')
+               for line in lines2):
+        fail('train loop: the second call did not restore step 4')
+    steps = {}
+    for part, want in ((log1, [1, 2, 3, 4]), (log2, [5, 6])):
+        records = [r for r in part if 'total_loss' in r]
+        if [r['step'] for r in records] != want:
+            fail('train loop: logged steps {}, want {}'.format(
+                [r['step'] for r in records], want))
+        for r in records:
+            if not all(np.isfinite(v) for v in r.values()):
+                fail('train loop: step {} logged {}'.format(r['step'], r))
+            steps[r['step']] = r
+    saves = [re.match(r'checkpoint (\d+): (\d+) bytes in ([0-9.]+) s',
+                      line) for line in lines1 + lines2]
+    saves = [(int(m.group(1)), int(m.group(2)), float(m.group(3)))
+             for m in saves if m]
+    restore_s = [float(re.match(r'restored checkpoint 4 in ([0-9.]+) s',
+                                line).group(1))
+                 for line in lines2 if line.startswith('restored')][0]
+    memory = [r for r in log1 if any(k.startswith('bytes_in_use')
+                                     for k in r)]
+    ms = {k: 1e3 / r['steps_per_sec'] for k, r in steps.items()}
+    loader = loader_times(config_path)
+    report = dict(
+        ms_per_step={k: round(v, 3) for k, v in ms.items()},
+        steady_ms_per_step=float(np.median([ms[2], ms[4], ms[6]])),
+        total_loss={k: round(r['total_loss'], 4)
+                    for k, r in steps.items()},
+        checkpoint_bytes=saves[0][1],
+        save_s=[s[2] for s in saves], restore_s=restore_s,
+        start_to_first_step_s=[start1, start2],
+        bytes_in_use_at_start=memory[0] if memory else None,
+        loader=loader)
+    print('train loop (run_training CLI, production width, KITTI '
+          'fixture, seed 0): steps 1-4, then resumed at 4 for 5-6; '
+          'checkpoints {}; total_loss {}'.format(
+              manager.all_steps(), report['total_loss']))
+    print('train loop: wall ms/step from steps_per_sec {} (steps 1 and '
+          '5 are each call\'s first, 3 and 5 include the previous '
+          'checkpoint\'s save); steady (steps 2, 4, 6) {:.3f} ms; '
+          '{}'.format(report['ms_per_step'],
+                      report['steady_ms_per_step'], card))
+    print('train loop: checkpoint {} bytes, saves {} s, restore {:.3f} '
+          's; seconds from the CLI\'s start to its first step {}; {}'
+          .format(report['checkpoint_bytes'], report['save_s'],
+                  restore_s, ['{:.1f}'.format(x) for x in
+                              report['start_to_first_step_s']], card))
+    print('train loop: host loader, one thread, per sample over the {} '
+          'fixture train samples: PNG decode {:.3f} ms, assembly {:.3f} '
+          'ms; prepare_sample {:.3f} ms per valid sample ({}); {:.3f} ms '
+          'per sample delivered to the step ({})'.format(
+              loader['samples'], loader['decode_ms'],
+              loader['assembly_ms'], loader['prepare_ms'],
+              loader['valid'], loader['ms_per_delivered_sample'], card))
+    print('train loop: emd kernels on this path: none (the production '
+          'loss_config runs no EMD loss; K1 runs in val-mode eval only)')
+    return report
+
+
+# --------------------------------------------------------------------------
+# Eval reference: the Evaluator on the card against the CPU (tiny)
+# --------------------------------------------------------------------------
+
+EVAL_TINY_NAME = 'chip_smoke_eval_tiny'
+EVAL_TINY_BATCH = 3
+
+
+def eval_reference(seed):
+    """The Evaluator on a tiny float32 copy of the production config
+    (resnet_tiny, 4 boxes, 48x160 input, 16x16 ROIs) on the fixture's val
+    split, at eval batch EVAL_TINY_BATCH (a padded tail group), from one
+    checkpoint written by ``save_checkpoint`` (seeded random weights, the
+    EMA set apart at 0.9 of them), on the card and on the CPU. Fails
+    unless the box_3d txts agree within rtol 1e-4 + atol 1e-4 (the bound
+    the CPU tests hold the port to JAX with), each box's METRIC_EMD (K1 on
+    the card, the plain version on the CPU) within 1e-4 relative, and K1
+    launched once per dispatch group on the card."""
+    path = production_yaml(EVAL_TINY_NAME, [
+        ('seed', '0', 1), ('num_boxes', '4', 1),
+        ('image_input_shape', '[48, 160]', 1),
+        ('resized_full_img_shape', '[24, 80]', 1),
+        ('img_roi_size', '[16, 16]', 1), ('map_roi_size', '[16, 16]', 1),
+        ('layer_sizes', '[16, 16]', 2),
+        ('compute_dtype', "'float32'\n    resnet: 'resnet_tiny'", 1),
+        ('eval_batch', str(EVAL_TINY_BATCH), 1)])
+    base = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke',
+                        EVAL_TINY_NAME)
+    shutil.rmtree(base, ignore_errors=True)
+    config = config_lib.parse_yaml_config(path, output_base_dir=base)
+    net, _ = monopsr.create_net_from_config(
+        config.model_config, config.dataset_config, device='cpu', seed=seed)
+    tx, _, use_ema, _ = opt_lib.build_optimizer(
+        config.train_config.to_dict())
+    state = TrainState.create(net, tx, use_ema=use_ema)
+    with torch.no_grad():
+        for value in state.ema_params.values():
+            value.mul_(0.9)
+    trainer.save_checkpoint(trainer.CheckpointManager(config.checkpoint_dir),
+                            state, 1)
+    del net, state
+    runs = {}
+    for device in ('cpu', 'cuda'):
+        dev_config = config_lib.parse_yaml_config(
+            path, output_base_dir=os.path.join(base, device))
+        dev_config.checkpoint_dir = config.checkpoint_dir
+        dev_config.dataset_config.data_split = 'val'
+        ev = evaluator.Evaluator(
+            dev_config, KittiDataset(dev_config.dataset_config, 'val'), 'val',
+            do_kitti_native_eval=False, device=device)
+        emd_ops.emd_cost_fused.launches = 0
+        result, = ev.run_latest_checkpoints([1])
+        runs[device] = dict(config=dev_config, result=result,
+                            launches=emd_ops.emd_cost_fused.launches)
+    cpu, card = runs['cpu'], runs['cuda']
+    valid = card['result']['num_samples']
+    groups = -(-valid // EVAL_TINY_BATCH)
+    if card['launches'] != groups or cpu['result']['num_samples'] != valid:
+        fail('eval reference: K1 launched {} times for {} valid samples in '
+             'groups of {}'.format(card['launches'], valid,
+                                   EVAL_TINY_BATCH))
+    dirs = [os.path.join(r['config'].pred_dir, 'box_3d', 'val', '1')
+            for r in (cpu, card)]
+    names = sorted(os.listdir(dirs[0]))
+    if len(names) != valid or sorted(os.listdir(dirs[1])) != names:
+        fail('eval reference: box_3d files {} vs {}'.format(
+            names, sorted(os.listdir(dirs[1]))))
+    box_excess = 0.0
+    for name in names:
+        want, got = (np.loadtxt(os.path.join(d, name), ndmin=2)
+                     for d in dirs)
+        if got.shape != want.shape:
+            fail('eval reference: {} rows {} vs {}'.format(
+                name, got.shape, want.shape))
+        box_excess = max(box_excess, float(
+            (np.abs(got - want) / (1e-4 + 1e-4 * np.abs(want))).max()))
+    want = cpu['result']['metrics_per_box'][C.METRIC_EMD]
+    got = card['result']['metrics_per_box'][C.METRIC_EMD]
+    emd_rel = float((np.abs(got - want) /
+                     np.maximum(np.abs(want), 1e-30)).max())
+    print('eval reference (Evaluator, tiny config, fixture val split, eval '
+          'batch {}): {} valid samples, {} boxes; box_3d worst error {:.3f} '
+          'of its tolerance; METRIC_EMD max rel err {:.3e} (bound 1e-4), '
+          'card {} vs CPU {}; emd_cost_fused launches {} in {} groups'
+          .format(EVAL_TINY_BATCH, valid, len(want), box_excess, emd_rel,
+                  got.round(5), want.round(5), card['launches'], groups))
+    if box_excess > 1.0 or not np.isfinite(got).all() or emd_rel > 1e-4:
+        fail('eval reference: the card disagrees with the CPU')
+    shutil.rmtree(base, ignore_errors=True)
+    return dict(valid=valid, launches=card['launches'], groups=groups,
+                emd_max_rel_err=emd_rel, box_worst_of_tolerance=box_excess)
+
+
+# --------------------------------------------------------------------------
+# Eval CLIs: run_evaluation and run_inference at production width
+# --------------------------------------------------------------------------
+
+_STAT_RE = r'{}: min [0-9.]+, max [0-9.]+, mean [0-9.]+, median ([0-9.]+)'
+
+
+def cli_numbers(lines):
+    """What the eval CLIs print, per checkpoint evaluated."""
+    def grab(pattern, cast=float):
+        return [tuple(cast(g) for g in m.groups()) for m in
+                (re.match(pattern, line) for line in lines) if m]
+    return dict(
+        restore_s=grab(r'restored checkpoint (\d+) in ([0-9.]+) s'),
+        feed_s=[g[0] for g in grab(_STAT_RE.format('feed dict time'))],
+        infer_s=[g[0] for g in grab(_STAT_RE.format('inference time'))],
+        launches=grab(r'kernel launches: emd_cost_fused (\d+), emd_loss '
+                      r'(\d+) in (\d+) groups', int),
+        native_s=grab(r'native eval of step (\d+): ([0-9.]+) s'),
+        evaluated=grab(r'Evaluated (\d+) samples at step (\d+) in '
+                       r'([0-9.]+) s'))
+
+
+def ap_blocks(path):
+    """{step: [AP lines]} of a native-eval results file."""
+    blocks, step = {}, None
+    with open(path) as f:
+        for line in f:
+            if line.startswith('step '):
+                step = int(line.split()[1])
+                blocks.setdefault(step, [])
+            elif ' AP: ' in line and step is not None:
+                blocks[step].append(line.strip())
+    return blocks
+
+
+def check_kitti_dir(kitti_dir, names, label):
+    """One KITTI file per sample name, rows of 16 fields ending CRLF."""
+    files = sorted(os.listdir(kitti_dir))
+    if files != sorted(n + '.txt' for n in names):
+        fail('{}: KITTI files {} for samples {}'.format(label, files, names))
+    rows = 0
+    for name in files:
+        with open(os.path.join(kitti_dir, name), 'rb') as f:
+            data = f.read()
+        if not data:
+            continue
+        if not data.endswith(b'\r\n') or any(
+                len(row.split()) != 16
+                for row in data.decode().split('\r\n')[:-1]):
+            fail('{}: KITTI file {} is not 16-field CRLF rows'.format(
+                label, name))
+        rows += len(data.decode().split('\r\n')) - 1
+    return rows
+
+
+def eval_cli_phase(card):
+    """The evaluation CLI (val split, native AP on) over the train loop's
+    checkpoints 2, 4 and 6, then the inference CLI at step 6 on the val
+    and on the test split, each in a subprocess on the card at production
+    width. Fails unless each exits 0; evaluated_val.txt lists 2, 4, 6;
+    each step has a box_3d txt per valid val sample and a KITTI file per
+    val sample (16-field CRLF rows); each step's metrics_avg.csv is there
+    and its eval_val.jsonl losses are finite; K1 launched once per
+    dispatch group of each step (K2 never); both native-eval results
+    files hold AP lines for each step; and the test split has a KITTI
+    file per sample."""
+    config = config_lib.parse_yaml_config(train_loop_config(6))
+    path = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke',
+                        TRAIN_LOOP_NAME + '.yaml')
+    steps = [2, 4, 6]
+    torch.cuda.empty_cache()
+    val_lines, val_first = run_cli('run_evaluation', [
+        '--config_path', path, '--data_split', 'val'], 'first sample saved')
+    val = cli_numbers(val_lines)
+
+    with open(os.path.join(config.exp_output_dir, 'evaluated_val.txt')) as f:
+        ledger = [int(x) for x in f.read().split()]
+    if ledger != steps:
+        fail('eval CLIs: evaluated_val.txt lists {}'.format(ledger))
+    dataset_config = config.dataset_config
+    dataset_config.data_split = 'val'
+    dataset = KittiDataset(dataset_config, 'val')
+    val_names = [s.name for s in dataset.sample_list]
+    valid = sorted(str(s[C.SAMPLE_NAME]) for s in dataset.get_sample_dict(
+        np.arange(dataset.num_samples)) if s is not None)
+    with open(os.path.join(config.logdir, 'eval_val.jsonl')) as f:
+        records = {r['step']: r for r in map(json.loads, f)
+                   if 'losses' in r}
+    pred = config.pred_dir
+    kitti_rows = {}
+    for step in steps:
+        box_dir = os.path.join(pred, 'box_3d', 'val', str(step))
+        if sorted(n[:-4] for n in os.listdir(box_dir)) != valid:
+            fail('eval CLIs: step {} box_3d txts {} for valid samples {}'
+                 .format(step, sorted(os.listdir(box_dir)), valid))
+        kitti_rows[step] = check_kitti_dir(os.path.join(
+            pred, 'kitti_predictions_3d', 'val', '0.1', str(step), 'data'),
+            val_names, 'eval CLIs step {}'.format(step))
+        csv = os.path.join(config.exp_output_dir, 'metrics', str(step), 'val',
+                           'metrics_avg.csv')
+        record = records.get(step)
+        if not os.path.exists(csv) or record is None or not all(
+                np.isfinite(v) for v in record['losses'].values()):
+            fail('eval CLIs: step {} metrics_avg.csv / losses {}'.format(
+                step, record))
+    if [int(n) for n, _, _ in val['evaluated']] != [len(valid)] * 3 or any(
+            k1 != groups or k2 != 0 or groups < 1
+            for k1, k2, groups in val['launches']):
+        fail('eval CLIs: evaluated {}, kernel launches {}'.format(
+            val['evaluated'], val['launches']))
+    aps = {}
+    for regime in ('', 'low_iou_'):
+        blocks = ap_blocks(os.path.join(
+            pred, '{}_results_{}0.1.txt'.format(TRAIN_LOOP_NAME, regime)))
+        if sorted(blocks) != steps or not all(blocks.values()):
+            fail('eval CLIs: results {}: {}'.format(regime, blocks))
+        aps['low IoU' if regime else 'standard'] = blocks[6]
+
+    # Inference at step 6 (its val outputs go to the same directories)
+    inf_lines, inf_first = run_cli('run_inference', [
+        '--config_path', path, '--data_split', 'val', '--ckpt_num', '6'],
+        'first sample saved')
+    test_lines, test_first = run_cli('run_inference', [
+        '--config_path', path, '--data_split', 'test', '--ckpt_num', '6'],
+        'first sample saved')
+    inf, test = cli_numbers(inf_lines), cli_numbers(test_lines)
+    test_config = config_lib.parse_yaml_config(path).dataset_config
+    test_config.data_split = 'test'
+    test_config.data_split_dir = 'testing'
+    test_config.has_kitti_labels = False
+    test_names = [s.name for s in KittiDataset(test_config,
+                                               'test').sample_list]
+    test_rows = check_kitti_dir(os.path.join(
+        pred, 'kitti_predictions_3d', 'test', '0.1', '6', 'data'),
+        test_names, 'eval CLIs test split')
+    if not test['evaluated'] or not inf['evaluated'] or test_rows < 1:
+        fail('eval CLIs: inference evaluated val {} test {}, {} test rows'
+             .format(inf['evaluated'], test['evaluated'], test_rows))
+
+    def ms_per_image(numbers):
+        return [1e3 * secs / n for n, _, secs in numbers['evaluated']]
+
+    report = dict(
+        val_ms_per_image=ms_per_image(val),
+        inference_val_ms_per_image=ms_per_image(inf)[0],
+        test_ms_per_image=ms_per_image(test)[0],
+        val_feed_ms=[1e3 * x for x in val['feed_s']],
+        val_infer_ms=[1e3 * x for x in val['infer_s']],
+        inference_val_feed_ms=1e3 * inf['feed_s'][0],
+        inference_val_infer_ms=1e3 * inf['infer_s'][0],
+        test_feed_ms=1e3 * test['feed_s'][0],
+        test_infer_ms=1e3 * test['infer_s'][0],
+        start_to_first_sample_s=[val_first, inf_first, test_first],
+        restore_s={'val': val['restore_s'], 'inference val':
+                   inf['restore_s'], 'inference test': test['restore_s']},
+        native_eval_s=val['native_s'],
+        k1_launches=[k1 for k1, _, _ in val['launches']],
+        groups=[g for _, _, g in val['launches']],
+        valid_val_samples=len(valid), kitti_rows=kitti_rows,
+        test_rows=test_rows, ap_step_6=aps)
+    print('eval CLIs (production width, KITTI fixture, checkpoints 2/4/6 '
+          'of the train loop): run_evaluation val {} valid of {} samples '
+          'per step, K1 launches {} in groups {}; run_inference val and '
+          'test at step 6; every output checked; {}'.format(
+              len(valid), len(val_names), report['k1_launches'],
+              report['groups'], card))
+    print('eval CLIs: wall ms per image over each checkpoint\'s epoch: '
+          'val {}, inference val {:.3f}, inference test {:.3f}; {}'.format(
+              ['{:.3f}'.format(x) for x in report['val_ms_per_image']],
+              report['inference_val_ms_per_image'],
+              report['test_ms_per_image'], card))
+    print('eval CLIs: per image, median over each checkpoint: val feed ms '
+          '{} inference ms {}; inference CLI val feed {:.3f} inference '
+          '{:.3f} ms; test feed {:.3f} inference {:.3f} ms; {}'.format(
+              ['{:.3f}'.format(x) for x in report['val_feed_ms']],
+              ['{:.3f}'.format(x) for x in report['val_infer_ms']],
+              report['inference_val_feed_ms'],
+              report['inference_val_infer_ms'], report['test_feed_ms'],
+              report['test_infer_ms'], card))
+    print('eval CLIs: seconds from start to first sample saved {}; restore '
+          's {}; native eval s {}; {}'.format(
+              ['{:.1f}'.format(x) for x in
+               report['start_to_first_sample_s']],
+              report['restore_s'], report['native_eval_s'], card))
+    for regime, lines in aps.items():
+        print('eval CLIs: AP of step 6 ({} regime; 6 steps of training from '
+              'random init on the fixture, not an accuracy result): {}'
+              .format(regime, ' | '.join(lines)))
     return report
 
 
@@ -1208,7 +1519,15 @@ def main():
                          ('K2 train step, masked, drawn apart', apart2)])
     train_reference(args.seed)
     train_report = main_path_train(args.seed)
-    loop_report = train_loop_phase(card)
+    loop_dir = config_lib.parse_yaml_config(
+        train_loop_config(4)).exp_output_dir
+    shutil.rmtree(loop_dir, ignore_errors=True)
+    try:
+        loop_report = train_loop_phase(card)
+        eval_tiny = eval_reference(args.seed)
+        eval_report = eval_cli_phase(card)
+    finally:
+        shutil.rmtree(loop_dir, ignore_errors=True)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -1223,6 +1542,8 @@ def main():
         'source': 'monopsr_torch/csrc/emd_cost_fused.cu',
         'replaces': 'monopsr_tpu/ops/emd.py:283',
         'launches': report['val']['launches'],
+        'launches_eval_reference': eval_tiny['launches'],
+        'launches_eval_cli': eval_report['k1_launches'],
         'max_abs_err': prod['max_abs_err'],
         'max_rel_err': prod['max_rel_err'],
         'main_path_clouds_max_rel_err': report['clouds_max_rel_err'],
@@ -1243,6 +1564,7 @@ def main():
         'source': 'monopsr_torch/csrc/emd_loss.cu',
         'replaces': 'monopsr_tpu/ops/emd.py:425',
         'launches': train_report['emd loss']['launches'],
+        'launches_eval_cli': 0,
         'max_abs_err': prod2['max_abs_err'],
         'max_rel_err': prod2['max_rel_err'],
         'accumulators_max_rel_err': prod2['acc_max_rel_err'],
@@ -1271,6 +1593,8 @@ def main():
               train_report['production loss']['ms'],
               train_report['emd loss']['ms'], TRAIN_BATCH, card))
     print('train loop: ' + json.dumps(loop_report))
+    print('eval reference: ' + json.dumps(eval_tiny))
+    print('eval CLIs: ' + json.dumps(eval_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

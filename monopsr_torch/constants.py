@@ -74,6 +74,11 @@ FEATURES_FOR_BOX_3D = 'features_for_box_3d'
 FEATURES_PROPOSAL_FC_OUT = 'features_proposal_fc_out'
 FEATURES_REGRESSION_FC_OUT = 'features_regression_fc_out'
 
+# Output directories
+OUT_DIR_BOX_2D = 'output_box_2d_dir'
+OUT_DIR_BOX_3D = 'output_box_3d_dir'
+OUT_DIR_XYZ_MAP_LOCAL = 'output_xyz_map_dir'
+
 # Metrics
 METRIC_EMD = 'metric_emd'
 METRIC_CHAMFER = 'metric_chamfer'

@@ -1,16 +1,19 @@
-"""Instance-image IO (host side).
+"""Instance-image IO and the cen_x post-process (host side).
 
-Counterpart of ``read_instance_image``, ``get_instance_image`` and
-``get_instance_mask_list`` in ``monopsr_tpu/datasets/kitti/
+Counterpart of ``read_instance_image``, ``get_instance_image``,
+``get_instance_mask_list``, ``postprocess_cen_x`` and
+``postprocess_cen_x_batch`` in ``monopsr_tpu/datasets/kitti/
 instance_utils.py``, reading through ``utils.image_io`` instead of cv2.
-The host crop and post-process functions of that module serve the
-evaluator's host side and are not ported yet.
+The numpy instance-crop functions of that module have no caller on the
+training or evaluation path and are not ported (ROADMAP M15).
 """
 
 import os
 
 import numpy as np
 
+from monopsr_torch.geometry import boxes as box_geom
+from monopsr_torch.geometry import projection
 from monopsr_torch.utils import image_io
 
 
@@ -45,3 +48,58 @@ def get_instance_mask_list(instance_img, num_instances=None):
         num_instances = np.max(valid) + 1
     return np.asarray([(instance_img == idx)
                        for idx in range(num_instances)])
+
+
+def postprocess_cen_x(pred_box_2d, pred_box_3d, cam_p):
+    """Refines cen_x from the projected-corner width ratio.
+
+    Projects the predicted 3D box, finds where the centroid sits within
+    the projected width, maps that ratio onto the detected 2D box, and
+    backprojects at the predicted depth. The scalar rule that
+    ``postprocess_cen_x_batch`` vectorises.
+    """
+    focal_length = cam_p[0, 0]
+    centre_u = cam_p[0, 2]
+
+    corners = box_geom.np_compute_box_3d_corners(pred_box_3d)
+    corners_uv = projection.np_project_pc_to_image(corners, cam_p)
+
+    cen_uv = projection.np_project_pc_to_image(
+        np.asarray(pred_box_3d[0:3]).reshape(3, 1), cam_p)
+
+    min_u = np.amin(corners_uv[0])
+    max_u = np.amax(corners_uv[0])
+    u_ratio = (cen_uv[0] - min_u) / (max_u - min_u)
+
+    box_w = pred_box_2d[3] - pred_box_2d[1]
+    pred_u = pred_box_2d[1] + u_ratio * box_w
+
+    ratio = pred_box_3d[2] / focal_length
+    return (pred_u - centre_u) * ratio
+
+
+def postprocess_cen_x_batch(pred_boxes_2d, pred_boxes_3d, cam_p):
+    """Vectorised postprocess_cen_x over (N, 4+) boxes_2d / (N, 7)
+    boxes_3d: one pass of batched corner projection."""
+    pred_boxes_2d = np.asarray(pred_boxes_2d, np.float64)
+    pred_boxes_3d = np.asarray(pred_boxes_3d, np.float64)
+    if len(pred_boxes_3d) == 0:
+        return np.zeros((0,), np.float64)
+
+    focal_length = cam_p[0, 0]
+    centre_u = cam_p[0, 2]
+
+    corners = box_geom.np_compute_box_3d_corners_batch(
+        pred_boxes_3d[:, 0:7])
+    corners_uv = box_geom.np_project_corners_batch(corners, cam_p)
+    cen_uv = box_geom.np_project_corners_batch(
+        pred_boxes_3d[:, 0:3, None], cam_p)
+
+    min_u = corners_uv[:, 0].min(-1)
+    max_u = corners_uv[:, 0].max(-1)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        u_ratio = (cen_uv[:, 0, 0] - min_u) / (max_u - min_u)
+
+    box_w = pred_boxes_2d[:, 3] - pred_boxes_2d[:, 1]
+    pred_u = pred_boxes_2d[:, 1] + u_ratio * box_w
+    return (pred_u - centre_u) * pred_boxes_3d[:, 2] / focal_length

@@ -1,7 +1,9 @@
 """Discrete-continuous orientation encoding (alpha bins + residuals), host side.
 
-Counterpart of the encoder in ``monopsr_tpu/geometry/orientation.py``,
-which the dataset layer runs on each sample's alphas. Bin centres start
+Counterpart of the numpy encoder and decoder of
+``monopsr_tpu/geometry/orientation.py``: the dataset layer encodes each
+sample's alphas, the evaluator's prediction formatting decodes the
+predicted bin and residual. Bin centres start
 at 0.0 and step by 2*pi/num_bins; the residual for the best bin is the
 shifted-angle remainder, and residuals for all bins are wrapped with
 atan2.
@@ -69,3 +71,15 @@ def np_orientation_to_angle_bin(orientation, num_bins, overlap=0.0):
     if scalar_input:
         return int(best_bin[0]), residuals[0], one_hot[0]
     return best_bin, residuals, one_hot
+
+
+def np_angle_bin_to_orientation(angle_bin, residual, num_bins):
+    """Decodes (bin, residual) back to an orientation in [-pi, pi]."""
+    two_pi = 2.0 * np.pi
+    angle_per_bin = two_pi / num_bins
+    angle = np.asarray(angle_bin) * angle_per_bin + np.asarray(residual)
+    angle = np.where(angle < -np.pi, angle + two_pi, angle)
+    angle = np.where(angle > np.pi, angle - two_pi, angle)
+    if np.ndim(angle) == 0:
+        return float(angle)
+    return angle

@@ -211,27 +211,47 @@ def _same_keys(what, got, want):
             what))
 
 
-def restore_latest(manager, state):
-    """Restores the latest checkpoint into ``state`` in place (the net's
-    parameters and buffers are copied into, the optimizer state replaced)
-    and returns (state, step), or (state, 0) when there is none."""
-    latest = manager.latest_step()
-    if latest is None:
-        return state, 0
+def _to_device(tree, device):
+    """Fresh copies of a nested dict of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True) if torch.is_tensor(tree) else tree
+
+
+def restore_checkpoint(manager, step, state):
+    """Restores checkpoint ``step`` into ``state`` in place and returns
+    it: the parameters, batch stats and EMA are copied into, the
+    optimizer state replaced. The file is memory-mapped, so only what is
+    copied is read: a state whose ``opt_state`` is None (the evaluator's)
+    restores the weights and leaves the optimizer's moments, half the
+    file, unread."""
     device = next(iter(state.params.values())).device
-    saved = torch.load(manager.path(latest), map_location=device,
-                       weights_only=True)
-    for part in ('params', 'batch_stats', 'ema_params'):
+    saved = torch.load(manager.path(step), map_location='cpu',
+                       weights_only=True, mmap=True)
+    parts = ('params', 'batch_stats', 'ema_params')
+    for part in parts:
         _same_keys(part, saved[part], getattr(state, part))
-    _same_keys('optimizer state', saved['opt_state'], state.opt_state)
+    if state.opt_state is not None:
+        _same_keys('optimizer state', saved['opt_state'], state.opt_state)
     with torch.no_grad():
-        for part in ('params', 'batch_stats', 'ema_params'):
+        for part in parts:
             target = getattr(state, part) or {}
             for key, value in target.items():
                 value.copy_(saved[part][key])
-    state.opt_state = saved['opt_state']
+    if state.opt_state is not None:
+        state.opt_state = _to_device(saved['opt_state'], device)
     state.step = int(saved['step'])
-    return state, latest
+    return state
+
+
+def restore_latest(manager, state):
+    """Restores the latest checkpoint into ``state`` in place
+    (``restore_checkpoint``) and returns (state, step), or (state, 0) when
+    there is none."""
+    latest = manager.latest_step()
+    if latest is None:
+        return state, 0
+    return restore_checkpoint(manager, latest, state), latest
 
 
 # --------------------------------------------------------------------------

@@ -11,6 +11,9 @@ and resizes with.
   bound is 1 LSB (the JAX package's own allowance between cv2's two
   INTER_LINEAR paths); each case states its share of differing pixels.
   It writes out OpenCV's fixed-point arithmetic, so the share is 0 here.
+- ``write_png`` (8-bit gray, the evaluator's mask PNGs): read back by
+  ``cv2.imread(IMREAD_GRAYSCALE)`` and by ``read_png``, pixel-equal to
+  what was written, at odd sizes and on a fixture instance image.
 """
 
 import glob
@@ -190,3 +193,33 @@ def test_resize_rejects_other_dtypes():
     with pytest.raises(ValueError, match='uint8'):
         image_io.resize_bilinear_uint8(np.zeros((4, 4, 3), np.float32),
                                        (2, 2))
+
+
+@pytest.mark.parametrize('shape', [(1, 1), (3, 7), (48, 48), (17, 33),
+                                   (375, 1242)])
+def test_write_png_reads_back_pixel_equal(tmp_path, shape):
+    rng = np.random.RandomState(shape[0] * 1000 + shape[1])
+    image = rng.randint(0, 256, shape).astype(np.uint8)
+    if shape == (48, 48):
+        image = (image > 127).astype(np.uint8) * 255      # a mask
+    path = str(tmp_path / 'out.png')
+    image_io.write_png(path, image)
+    np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_GRAYSCALE),
+                                  image)
+    np.testing.assert_array_equal(image_io.read_png(path), image)
+    # (H, W, 1) as cv2.imwrite takes it
+    image_io.write_png(path, image[..., None])
+    np.testing.assert_array_equal(image_io.read_png(path), image)
+
+
+def test_write_png_of_a_fixture_image_and_refusals(tmp_path):
+    src = next(p for p in PNGS if 'instance_2' in p)
+    image = image_io.read_png(src)
+    path = str(tmp_path / 'copy.png')
+    image_io.write_png(path, image)
+    np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_GRAYSCALE),
+                                  cv2.imread(src, cv2.IMREAD_GRAYSCALE))
+    for bad in (np.zeros((4, 4), np.uint16), np.zeros((4, 4, 3), np.uint8),
+                np.zeros((0, 4), np.uint8)):
+        with pytest.raises(ValueError, match='write_png'):
+            image_io.write_png(path, bad)

@@ -31,14 +31,14 @@ print(len(names), leaked)
 
 def test_package_imports_without_jax_or_reference():
     """Every module of the port, the train modules, the config reader,
-    the KITTI dataset layer and the CLI included (and chip_smoke.py),
-    imports with jax, flax, optax, cv2, PIL, yaml and monopsr_tpu made
-    unimportable."""
+    the KITTI dataset layer, the evaluator's host side and the three CLIs
+    included (and chip_smoke.py), imports with jax, flax, optax, cv2, PIL,
+    yaml and monopsr_tpu made unimportable."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 46
+    assert int(count) >= 54
     assert leaked.strip() == '[]'
 
 
@@ -91,6 +91,16 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         run_training.main(['--config_path', production])
     with pytest.raises(RuntimeError, match='CUDA'):
         run_training.main(['--config_path', production, '--device', 'cuda'])
+
+    # The evaluator and the evaluation and inference CLIs
+    from monopsr_torch.experiments import run_evaluation, run_inference
+    with pytest.raises(RuntimeError, match='CUDA'):
+        evaluator.Evaluator(ConfigObj({}), None, 'val')
+    for cli in (run_evaluation, run_inference):
+        with pytest.raises(RuntimeError, match='CUDA'):
+            cli.main(['--config_path', production])
+        with pytest.raises(RuntimeError, match='CUDA'):
+            cli.main(['--config_path', production, '--device', 'cuda'])
 
 
 def test_kernel_wrapper_refuses_other_devices():
