@@ -7,8 +7,9 @@ Run from the repository root with no arguments:
 
 Phases, any failure of which exits non-zero:
 
-1. card: name and power limit (nvidia-smi); TF32 switches set off and
-   printed.
+1. card: name and power limit (nvidia-smi); the TF32 switches as the
+   port's precision policy sets them (``utils/device.resolve_device``,
+   which every entry point passes through: TF32 off), printed.
 2. build: every CUDA kernel of the port, one nvcc per source, started
    together, into build/monopsr_torch_kernels/.
 3. kernels: each kernel against its plain PyTorch version on the card,
@@ -65,8 +66,9 @@ Phases, any failure of which exits non-zero:
 11. eval CLIs: ``python -m monopsr_torch.experiments.run_evaluation``
    (val split, native AP on) over phase 9's production-width checkpoints
    2, 4 and 6, then ``run_inference`` at step 6 on the val and the test
-   split, each in a subprocess. Every output is checked: the ledger, a
-   box_3d txt per valid sample, KITTI files of 16-field CRLF rows,
+   split, each in a subprocess. Every output is checked: no ledger
+   (only ``--repeated`` writes it, as in JAX), a box_3d txt per valid
+   sample, KITTI files of 16-field CRLF rows,
    metrics CSVs, finite losses, AP lines per step in both results
    files, a KITTI file per test sample, and K1 launched once per group
    (its count printed by the evaluator). Printed: ms per image, feed and
@@ -74,12 +76,26 @@ Phases, any failure of which exits non-zero:
    native-eval seconds, the AP lines of step 6. data/outputs/
    chip_smoke_train/ is removed at its end.
 
+12. production reference: the production config (ResNet-101 towers, 32
+   boxes, 320x1216) in val mode at eval batch 1, one synthetic sample,
+   seeded random weights: the card in float32 against the CPU in float32
+   and the card in bfloat16 against the card in float32, each output
+   within the tolerance ``production_reference`` states.
+13. data preparation: ``python -m monopsr_torch.tools.gen_depth_maps``
+   on the card over the fixture's 13 training frames copied to
+   build/chip_smoke/prep/, each map against the shipped one and the CPU
+   fill, then ``gen_instance_masks`` from the shipped maps (pixel for
+   pixel against the shipped instance images) and from the card's; the
+   fill's device and CPU ms per map, each tool's s per sample and
+   start-up.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
 """
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -105,6 +121,7 @@ from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer
 from monopsr_torch.train.train_state import TrainState
+from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io
 
 EVAL_BATCH = 4     # configs/monopsr_model_000.yaml train_config.eval_batch
@@ -1025,13 +1042,12 @@ def train_loop_config(max_iterations):
         ('summary_interval', '1', 1), ('checkpoint_interval', '2', 1)])
 
 
-def run_cli(module, args, first_prefix):
-    """Runs ``python -m monopsr_torch.experiments.<module> <args>`` on the
-    card in a subprocess; returns its printed lines and the seconds from
-    its start to its first line starting with ``first_prefix`` (None if
-    none). Killed after CLI_TIMEOUT_S; fails unless it exits 0."""
-    cmd = [sys.executable, '-u', '-m',
-           'monopsr_torch.experiments.' + module] + list(args)
+def run_cli(module, args, first_prefix, package='monopsr_torch.experiments'):
+    """Runs ``python -m <package>.<module> <args>`` on the card in a
+    subprocess; returns its printed lines and the seconds from its start
+    to its first line starting with ``first_prefix`` (None if none).
+    Killed after CLI_TIMEOUT_S; fails unless it exits 0."""
+    cmd = [sys.executable, '-u', '-m', package + '.' + module] + list(args)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=monopsr_torch.top_dir(),
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -1344,7 +1360,7 @@ def eval_cli_phase(card):
     """The evaluation CLI (val split, native AP on) over the train loop's
     checkpoints 2, 4 and 6, then the inference CLI at step 6 on the val
     and on the test split, each in a subprocess on the card at production
-    width. Fails unless each exits 0; evaluated_val.txt lists 2, 4, 6;
+    width. Fails unless each exits 0; no evaluated_val.txt is written;
     each step has a box_3d txt per valid val sample and a KITTI file per
     val sample (16-field CRLF rows); each step's metrics_avg.csv is there
     and its eval_val.jsonl losses are finite; K1 launched once per
@@ -1360,10 +1376,12 @@ def eval_cli_phase(card):
         '--config_path', path, '--data_split', 'val'], 'first sample saved')
     val = cli_numbers(val_lines)
 
-    with open(os.path.join(config.exp_output_dir, 'evaluated_val.txt')) as f:
-        ledger = [int(x) for x in f.read().split()]
-    if ledger != steps:
-        fail('eval CLIs: evaluated_val.txt lists {}'.format(ledger))
+    # without --repeated the CLI writes no ledger (as the JAX evaluator's
+    # run_latest_checkpoints; only the polling loop writes it)
+    ledger = os.path.join(config.exp_output_dir, 'evaluated_val.txt')
+    if os.path.exists(ledger):
+        fail('eval CLIs: run_evaluation without --repeated wrote {}'.format(
+            ledger))
     dataset_config = config.dataset_config
     dataset_config.data_split = 'val'
     dataset = KittiDataset(dataset_config, 'val')
@@ -1476,6 +1494,279 @@ def eval_cli_phase(card):
     return report
 
 
+# --------------------------------------------------------------------------
+# Production reference: the production config on the card, float32 against
+# the CPU and bfloat16 against float32
+# --------------------------------------------------------------------------
+
+# The boxes (their centroids), cen_z, alpha (bin logits, regressions),
+# lwh and the local xyz map
+PROD_REF_KEYS = (C.KEY_CENTROIDS, C.KEY_CEN_Z, C.KEY_ALPHA_BINS,
+                 C.KEY_ALPHA_REGS, C.KEY_LWH, C.KEY_INST_XYZ_MAP_LOCAL)
+BF16_BOUND = 5e-2
+
+
+def reference_step(net, cfg, batch, device, metrics):
+    """The val step's forward, GT, global outputs and losses (the EMD and
+    Chamfer metrics too where ``metrics``), returning the compared
+    outputs in float32 (not packed: the packed xyz map is float16) and
+    the losses, on the CPU."""
+    with torch.inference_mode():
+        dev = evaluator.batch_to_device(batch, device)
+        outputs = net(**monopsr.net_inputs_from_batch(dev))
+        gt = monopsr.build_gt_dict(cfg, dev, outputs)
+        outputs, gt = monopsr.add_global_outputs(cfg, dev, outputs, gt)
+        losses, _ = monopsr.compute_losses(cfg, LOSS_CONFIG, outputs, gt)
+        if metrics:
+            values = monopsr.compute_metrics(cfg, outputs, gt)
+            if not all(bool(torch.isfinite(v).all()) for v in values.values()):
+                fail('production reference: non-finite metrics on '
+                     + str(device))
+    out = {key: outputs[key].float().cpu() for key in PROD_REF_KEYS}
+    out.update({k: v.float().cpu() for k, v in losses.items()})
+    return out
+
+
+def production_reference(seed):
+    """The production configuration (ResNet-101 towers, 32 boxes,
+    320x1216 input) in val mode at eval batch 1, seeded random weights
+    (one set, loaded into each net) and one synthetic sample, three ways:
+    the card in float32 (compute dtype overridden), the CPU in float32,
+    the card in bfloat16 as the production config runs. The card's val
+    step runs the EMD and Chamfer metrics too (K1 once per step); the
+    CPU's leaves them out (the plain EMD over 32 pairs of 2304 points
+    would take most of this phase).
+
+    Tolerances, per tensor (the centroids, cen_z, the alpha bin logits
+    and regressions, lwh, the local xyz map; and, card float32 against
+    the CPU, every loss):
+    - card float32 against CPU float32: |d| <= 1e-3 |x| + 1e-3 max(1,
+      max|x|), the slice reference's bound;
+    - card bfloat16 against card float32: max|d| <= BF16_BOUND = 5e-2 of
+      max|x|. bfloat16 keeps 8 significant bits (a rounding of 2^-9 of
+      each value); over ~100 layers of random weights those roundings
+      add up like a random walk, to ~1-2% of a tensor's largest value
+      (0.6-1.6% measured on the CPU with these widths at a 96x320 input
+      and 8 boxes); the bound leaves 3x room over that, and is fixed
+      here before any run of this phase on the card.
+    Prints the largest deviation per output, both ways."""
+    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
+    cfg16 = production_config()
+    batch = synthetic_batch(seed + 3, cfg32, 1, (375, 1242),
+                            C.DEPTH_PAD_SHAPE)
+    net = monopsr.create_net(cfg32, device='cpu', seed=seed)
+    weights = {k: v.clone() for k, v in net.state_dict().items()}
+    t0 = time.perf_counter()
+    cpu = reference_step(net, cfg32, batch, 'cpu', metrics=False)
+    cpu_s = time.perf_counter() - t0
+    del net
+    runs = {}
+    for name, cfg in (('float32', cfg32), ('bfloat16', cfg16)):
+        net = monopsr.create_net(cfg, device='cpu', seed=seed + 1)
+        net.load_state_dict(weights)
+        step_net = net.to('cuda').eval()
+        emd_ops.emd_cost_fused.launches = 0
+        runs[name] = reference_step(step_net, cfg, batch, 'cuda',
+                                    metrics=True)
+        if emd_ops.emd_cost_fused.launches != 1:
+            fail('production reference: K1 launched {} times'.format(
+                emd_ops.emd_cost_fused.launches))
+        del net, step_net
+        torch.cuda.empty_cache()
+    report = {'cpu_s': cpu_s}
+    for label, want_all, got_all, keys, bound in (
+            ('card float32 vs CPU float32', cpu, runs['float32'], list(cpu),
+             None),
+            ('card bfloat16 vs card float32', runs['float32'],
+             runs['bfloat16'], PROD_REF_KEYS, BF16_BOUND)):
+        rows, worst, bad = [], 0.0, []
+        for key in keys:
+            want, got = want_all[key], got_all[key]
+            err = (got - want).abs()
+            if bound is None:        # the share of each element's allowance
+                excess = float((err / (1e-3 * want.abs() + 1e-3 * max(
+                    1.0, float(want.abs().max())))).max())
+            else:
+                excess = float(err.max()) / (bound * float(
+                    want.abs().max()) or 1.0)
+            worst = max(worst, excess)
+            rows.append('{} {:.3e} of max|x| {:.3e}'.format(
+                key, float(err.max()), float(want.abs().max())))
+            if not bool(torch.isfinite(got).all()) or excess > 1.0:
+                bad.append(key)
+        print('production reference, {}: worst {:.3f} of its tolerance; '
+              'largest |d| per output: {}'.format(label, worst,
+                                                  '; '.join(rows)))
+        if bad:
+            fail('production reference, {}: outside the tolerance in {}'
+                 .format(label, bad))
+        report[label] = worst
+    print('production reference: CPU float32 val step (no metrics) {:.1f} s'
+          .format(cpu_s))
+    return report
+
+
+# --------------------------------------------------------------------------
+# Data preparation: gen_depth_maps on the card, gen_instance_masks
+# --------------------------------------------------------------------------
+
+PREP_INPUTS = ('calib', 'image_2', 'velodyne', 'label_2')
+
+
+def depth_parity(got, want, label):
+    """tests/test_depth_fill.py's bounds on two float maps: |d| < 1e-3 m,
+    at most 1 LSB of the uint16 file (metres * 256) apart once rounded,
+    rounding flips on fewer than 0.5% of pixels, each where ``want`` lies
+    within 0.26 LSB of a rounding boundary. Returns (max |d|, flips)."""
+    err = float(np.abs(got - want).max())
+    u_got = np.round(got * 256.0).astype(np.int64)
+    u_want = np.round(want * 256.0).astype(np.int64)
+    flips = u_got != u_want
+    near = np.abs(want[flips] * 256.0 - np.round(want[flips] * 256.0))
+    if (err >= 1e-3 or np.abs(u_got - u_want).max() > 1 or
+            flips.mean() >= 5e-3 or not np.all(near > 0.5 - 0.26)):
+        fail('data preparation: {}: max |d| {:.3e}, {} flips'.format(
+            label, err, int(flips.sum())))
+    return err, int(flips.sum())
+
+
+def stored_parity(got, want, ours, label):
+    """The stored uint16 ``got`` (truncated metres * 256) against ``want``:
+    at most 1 LSB apart, on fewer than 0.5% of pixels, each where the
+    float ``ours`` behind ``got`` lies within 0.26 LSB of an integer (the
+    float behind ``want`` is within 1e-3 m = 0.256 LSB of it). Returns
+    the count of differing pixels."""
+    diff = got.astype(np.int64) - want.astype(np.int64)
+    flips = diff != 0
+    lsb = ours[flips] * 256.0
+    if (np.abs(diff).max() > 1 or flips.mean() >= 5e-3 or
+            not np.all(np.abs(lsb - np.round(lsb)) < 0.26)):
+        fail('data preparation: {}: {} pixels differ, by up to {}'.format(
+            label, int(flips.sum()), int(np.abs(diff).max())))
+    return int(flips.sum())
+
+
+def data_prep_phase(card):
+    """The data-preparation path at KITTI's own sizes: the fixture's 13
+    training frames (calib, image, velodyne, labels) copied under
+    build/chip_smoke/prep/training/; ``python -m monopsr_torch.tools.
+    gen_depth_maps`` on the card in a subprocess; each map against the
+    shipped depth_2_multiscale/ file and against the same fill on the CPU
+    (``depth_parity`` and ``stored_parity``, tests/test_depth_fill.py's
+    bounds); ``gen_instance_masks`` from the shipped maps, which must give
+    the shipped instance images pixel for pixel, and from the card's own
+    maps (the differing pixels printed). Printed with the card's name and
+    power limit: the fill's device ms per map (one warm-up, synchronized,
+    median and range over the 13 maps), its CPU ms (a reference only), and
+    each tool's wall seconds per sample and start-up seconds."""
+    from monopsr_torch.ops import depth_fill
+    from monopsr_torch.tools import gen_depth_maps
+    top = monopsr_torch.top_dir()
+    src = os.path.join(top, 'tests', 'datasets', 'Kitti', 'object',
+                       'training')
+    base = os.path.join(top, 'build', 'chip_smoke', 'prep')
+    split = os.path.join(base, 'training')
+    shutil.rmtree(base, ignore_errors=True)
+    for name in PREP_INPUTS:
+        shutil.copytree(os.path.join(src, name), os.path.join(split, name))
+    shutil.copytree(os.path.join(src, 'depth_2_multiscale'),
+                    os.path.join(split, 'depth_shipped'))
+    names = sorted(n[:-4] for n in os.listdir(os.path.join(split,
+                                                           'velodyne')))
+
+    def tool(module, args):
+        t0 = time.perf_counter()
+        lines, start_s = run_cli(module, ['--data_split_dir', split] + args,
+                                 '1 / ', package='monopsr_torch.tools')
+        wall = time.perf_counter() - t0
+        done = [line for line in lines if re.match(r'\d+ / \d+ ', line)]
+        if len(done) != len(names) or start_s is None:
+            fail('data preparation: {} printed {}'.format(module, lines))
+        return dict(start_s=start_s,
+                    s_per_sample=(wall - start_s) / len(names))
+
+    times = {'gen_depth_maps': tool('gen_depth_maps', [])}
+
+    sparse = [gen_depth_maps.sparse_depth_map(split, n) for n in names]
+    shapes = sorted({m.shape for m in sparse})
+    depth_fill.fill_in_multiscale(torch.from_numpy(sparse[0]).cuda())
+    card_ms, cpu_ms, worst = [], [], [0.0, 0, 0, 0]
+    for name, m in zip(names, sparse):
+        dev = torch.from_numpy(m).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        filled = depth_fill.fill_in_multiscale(dev)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+        filled = filled.cpu().numpy()
+        t0 = time.perf_counter()
+        cpu = depth_fill.fill_in_multiscale(m, device='cpu').numpy()
+        cpu_ms.append((time.perf_counter() - t0) * 1e3)
+        err, flips = depth_parity(filled, cpu, name + ' card vs CPU')
+        stored = image_io.read_png(os.path.join(
+            split, 'depth_2_multiscale', name + '.png'))
+        shipped = image_io.read_png(os.path.join(
+            src, 'depth_2_multiscale', name + '.png'))
+        if stored.shape != m.shape:
+            fail('data preparation: {} stored {} for {}'.format(
+                name, stored.shape, m.shape))
+        vs_shipped = stored_parity(stored, shipped, filled,
+                                   name + ' tool vs shipped')
+        vs_cpu = stored_parity(stored, (cpu * 256.0).astype(np.uint16),
+                               filled, name + ' tool vs CPU')
+        worst = [max(worst[0], err), worst[1] + flips,
+                 worst[2] + vs_shipped, worst[3] + vs_cpu]
+    pixels = sum(m.size for m in sparse)
+
+    times['gen_instance_masks (shipped maps)'] = tool(
+        'gen_instance_masks', ['--point_cloud_source', 'depth_shipped'])
+    times['gen_instance_masks (card maps)'] = tool('gen_instance_masks', [])
+    inst_differ = {}
+    for name in names:
+        shipped = image_io.read_png(os.path.join(
+            src, 'instance_2_depth_2_multiscale', name + '.png'))
+        from_shipped = image_io.read_png(os.path.join(
+            split, 'instance_2_depth_shipped', name + '.png'))
+        if not np.array_equal(from_shipped, shipped):
+            fail('data preparation: the instance image of {} from the '
+                 'shipped map differs from the shipped image in {} '
+                 'pixels'.format(name, int((from_shipped != shipped).sum())))
+        from_card = image_io.read_png(os.path.join(
+            split, 'instance_2_depth_2_multiscale', name + '.png'))
+        inst_differ[name] = int((from_card != shipped).sum())
+
+    report = dict(
+        maps=len(names), shapes=[list(s) for s in shapes],
+        fill_card_ms_median=float(np.median(card_ms)),
+        fill_card_ms_range=[min(card_ms), max(card_ms)],
+        fill_cpu_ms_median=float(np.median(cpu_ms)),
+        fill_cpu_ms_range=[min(cpu_ms), max(cpu_ms)],
+        card_vs_cpu_max_abs_m=worst[0], card_vs_cpu_round_flips=worst[1],
+        tool_vs_shipped_pixels=worst[2], tool_vs_cpu_pixels=worst[3],
+        pixels=pixels, instance_pixels_differ_from_card_maps=inst_differ,
+        tools=times)
+    print('data preparation ({} fixture frames, shapes {}): card vs CPU max '
+          '|d| {:.3e} m, {} rounding flips; the tool\'s uint16 maps differ '
+          'from the shipped ones in {} and from the CPU fill in {} of {} '
+          'pixels (each by 1 LSB, at a boundary); instance images from the '
+          'shipped maps equal the shipped ones; from the card\'s maps {} '
+          'pixels differ ({})'.format(
+              len(names), shapes, worst[0], worst[1], worst[2], worst[3],
+              pixels, sum(inst_differ.values()), inst_differ))
+    print('data preparation: fill_in_multiscale device ms per map (one '
+          'warm-up, synchronized) median {:.3f}, range {:.3f}-{:.3f}; CPU ms '
+          'median {:.3f}, range {:.3f}-{:.3f} (reference only); {}'.format(
+              report['fill_card_ms_median'], *report['fill_card_ms_range'],
+              report['fill_cpu_ms_median'], *report['fill_cpu_ms_range'],
+              card))
+    print('data preparation: tools, wall s per sample and start-up s: {}; '
+          '{}'.format('; '.join('{} {:.3f} s/sample, start {:.1f} s'.format(
+              k, v['s_per_sample'], v['start_s']) for k, v in times.items()),
+              card))
+    shutil.rmtree(base, ignore_errors=True)
+    return report
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -1491,8 +1782,7 @@ def main():
     print(card)
     props = torch.cuda.get_device_properties(0)
     sm_clock = float(nvidia_smi('clocks.max.sm').split()[0])
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    device_lib.resolve_device('cuda')     # the port's precision policy
     print('torch {} cuda {} | {} SMs, max SM clock {:.0f} MHz | '
           'cuda.matmul.allow_tf32={} cudnn.allow_tf32={}'.format(
               torch.__version__, torch.version.cuda,
@@ -1528,6 +1818,8 @@ def main():
         eval_report = eval_cli_phase(card)
     finally:
         shutil.rmtree(loop_dir, ignore_errors=True)
+    prod_ref = production_reference(args.seed)
+    prep_report = data_prep_phase(card)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -1595,6 +1887,8 @@ def main():
     print('train loop: ' + json.dumps(loop_report))
     print('eval reference: ' + json.dumps(eval_tiny))
     print('eval CLIs: ' + json.dumps(eval_report))
+    print('production reference: ' + json.dumps(prod_ref))
+    print('data preparation: ' + json.dumps(prep_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

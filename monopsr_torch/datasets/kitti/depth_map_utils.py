@@ -1,9 +1,8 @@
 """Depth-map IO and LiDAR depth rendering (host side).
 
-Counterpart of ``read_depth_map`` and ``project_depths`` in
-``monopsr_tpu/datasets/kitti/depth_map_utils.py``, reading through
-``utils.image_io`` instead of cv2. ``save_depth_map`` needs a PNG writer
-and is not ported.
+Counterpart of ``read_depth_map``, ``save_depth_map`` and
+``project_depths`` in ``monopsr_tpu/datasets/kitti/depth_map_utils.py``,
+reading and writing through ``utils.image_io`` instead of cv2.
 """
 
 import numpy as np
@@ -22,6 +21,14 @@ def read_depth_map(depth_map_path):
     depth_map = depth_image / 256.0
     depth_map[depth_map < 0.1] = 0.0
     return depth_map.astype(np.float32)
+
+
+def save_depth_map(save_path, depth_map):
+    """Saves a depth map to disk as a uint16 png (metres * 256, truncated
+    towards zero as numpy casts). The zlib level is the writer's own, so
+    the file's bytes differ from cv2's; its pixels do not."""
+    depth_image = (depth_map * 256.0).astype(np.uint16)
+    image_io.write_png(save_path, depth_image)
 
 
 def project_depths(point_cloud, cam_p, image_shape, max_depth=100.0):

@@ -1,10 +1,8 @@
 """KITTI object-label IO, filtering, and label-derived geometry (host side).
 
 Own copy of ``monopsr_tpu/datasets/kitti/obj_utils.py`` (numpy; runs in
-the host input pipeline), with ``get_image`` reading through
-``utils.image_io`` instead of cv2. The depth-map point cloud helper is
-left out: its backprojection (``np_get_depth_point_cloud``) belongs to
-the evaluation tools, which are not ported.
+the host input pipeline and the data-preparation tools), with
+``get_image`` reading through ``utils.image_io`` instead of cv2.
 """
 
 import copy
@@ -402,6 +400,11 @@ def get_depth_map(sample_name, depth_dir):
     from monopsr_torch.datasets.kitti import depth_map_utils
     path = os.path.join(depth_dir, '{}.png'.format(sample_name))
     return depth_map_utils.read_depth_map(path)
+
+
+def get_depth_map_point_cloud(sample_name, frame_calib, depth_dir):
+    depth_map = get_depth_map(sample_name, depth_dir)
+    return projection.np_get_depth_point_cloud(depth_map, frame_calib.p2)
 
 
 def get_image(sample_name, image_dir):

@@ -20,10 +20,10 @@ port's ``torch.save`` files (``train/trainer.py``), memory-mapped and
 read for the weights only; the device-to-host pipeline copies tensor by
 tensor (``eval/pipeline.py``), not as one packed buffer; the native
 evaluator is built and started by ``eval/native_eval.py`` with
-``subprocess.Popen``, not by ``make`` and a forked process;
-``run_latest_checkpoints`` in val mode also appends each step it
-evaluates to the ledger; an ``eval_data_parallel`` (or
-``data_parallel``) above 1 raises NotImplementedError (ROADMAP M16).
+``subprocess.Popen``, not by ``make`` and a forked process. As in
+JAX, only the polling loop writes the ledger, and ``eval_data_parallel``
+(or ``data_parallel``) is clamped to the visible devices; more than one
+left raises NotImplementedError (ROADMAP M16).
 """
 
 import json
@@ -145,11 +145,15 @@ class Evaluator:
         self.use_ema_weights = use_ema_weights
 
         train_config = config.train_config
-        dp = int(train_config.get('eval_data_parallel',
-                                  train_config.get('data_parallel', 1)) or 1)
+        # Clamped to the devices present, as the JAX evaluator's mesh is;
+        # more than one left is M16.
+        dp = min(int(train_config.get(
+            'eval_data_parallel', train_config.get('data_parallel', 1)) or 1),
+            device_lib.visible_device_count(self.device))
         if dp > 1:
             raise NotImplementedError(
-                'eval_data_parallel > 1 is not ported yet (ROADMAP M16)')
+                'eval_data_parallel {} over the visible devices is not '
+                'ported yet (ROADMAP M16)'.format(dp))
         # Samples per eval dispatch (tails padded)
         self.eval_batch = max(1, int(train_config.get('eval_batch', 4) or 4))
         # Dispatch groups the pipeline's worker takes at a time
@@ -548,8 +552,8 @@ class Evaluator:
 
     def run_latest_checkpoints(self, ckpt_indices=None):
         """Evaluates specific checkpoints ('all', None or a list of
-        steps), oldest first; in val mode each is appended to the
-        ledger. Returns their ``run_checkpoint_once`` records."""
+        steps), oldest first, without touching the ledger (as JAX).
+        Returns their ``run_checkpoint_once`` records."""
         manager = trainer_lib.CheckpointManager(self.config.checkpoint_dir)
         steps = sorted(manager.all_steps())
         if not steps:
@@ -564,8 +568,6 @@ class Evaluator:
             for step in steps:
                 state = self.restore_checkpoint(manager, step)
                 results.append(self.run_checkpoint_once(state, step))
-                if self.eval_mode == 'val':
-                    self._mark_evaluated(step)
         finally:
             self.wait_for_native_eval()
         return results

@@ -1,9 +1,10 @@
 """box_3d format helpers, host side (numpy): [x, y, z, l, w, h, ry].
 
-Counterpart of the numpy functions of ``monopsr_tpu/geometry/boxes.py``,
-which the evaluator's prediction formatting runs: corners, their
+Counterpart of ``monopsr_tpu/geometry/boxes.py``: the numpy functions,
+which the evaluator's prediction formatting runs (corners, their
 projection, the 2D box reorder and ``project_to_image_space``, whose
-scalar rules the vectorised ``eval/predictions.score_boxes`` follows.
+scalar rules the vectorised ``eval/predictions.score_boxes`` follows) and
+the instance-mask tool runs (``points_in_box_3d``).
 
 Corner convention: 8 corners with y in {0 (bottom), -h (top)}, i.e. the
 box_3d origin is the bottom-face centre.
@@ -59,6 +60,26 @@ def np_project_corners_batch(corners, cam_p):
     pts = (np.einsum('ij,njk->nik', cam_p[:, :3], corners) +
            cam_p[:, 3][None, :, None])
     return pts[:, 0:2] / pts[:, 2:3]
+
+
+def points_in_box_3d(box_3d, points):
+    """Selects (N, 3) points inside a box_3d; returns (points, mask).
+
+    Axis-projection containment test.
+    """
+    corners = np_compute_box_3d_corners(box_3d).T  # (8, 3)
+    u = corners[0] - corners[1]
+    v = corners[0] - corners[3]
+    w = corners[0] - corners[4]
+
+    u_dot = points @ u
+    v_dot = points @ v
+    w_dot = points @ w
+
+    mask = ((u_dot <= u @ corners[0]) & (u_dot >= u @ corners[1]) &
+            (v_dot <= v @ corners[0]) & (v_dot >= v @ corners[3]) &
+            (w_dot <= w @ corners[0]) & (w_dot >= w @ corners[4]))
+    return points[mask], mask
 
 
 def boxes_2d_to_iou_fmt(boxes_2d):

@@ -1,7 +1,8 @@
 """Camera projection and depth-patch backprojection, torch and numpy.
 
 Counterpart of ``monopsr_tpu/geometry/projection.py``: its device-side
-half, and ``np_project_pc_to_image`` for the host dataset layer. The JAX
+half, and ``np_project_pc_to_image`` and ``np_get_depth_point_cloud`` for
+the host dataset layer and the data-preparation tools. The JAX
 functions take one sample's box axis and a (3, 4) camera; here
 ``depth_patch_to_pc_map_batch`` takes a leading image axis B with one
 (3, 4) camera per image, and the other two broadcast over any leading
@@ -20,6 +21,21 @@ def np_project_pc_to_image(point_cloud, cam_p):
         point_cloud, np.ones((1, point_cloud.shape[1])), axis=0)
     pts = cam_p @ pc_padded
     return pts[0:2] / pts[2]
+
+
+def np_get_depth_point_cloud(depth_map, cam_p):
+    """Backprojects a full (H, W) depth map to a (3, H * W) float32 point
+    cloud in the cam0 frame, row by row."""
+    depth_map = np.asarray(depth_map, np.float32)
+    h, w = depth_map.shape[0:2]
+    xx, yy = np.meshgrid(np.linspace(0, w - 1, w), np.linspace(0, h - 1, h))
+
+    cu, cv, f = cam_p[0, 2], cam_p[1, 2], cam_p[0, 0]
+    ratio = depth_map / f
+    x = (xx - cu) * ratio - cam_p[0, 3] / f
+    y = (yy - cv) * ratio
+    return np.reshape(np.asarray([x, y, depth_map]), (3, -1)).astype(
+        np.float32)
 
 
 def project_pc_to_image_batch(point_cloud, cam_p, min_depth=1e-3):

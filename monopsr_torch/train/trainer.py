@@ -304,9 +304,14 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     model_config = config.model_config
     dataset_config = config.dataset_config
 
-    if int(train_config.get('data_parallel', 1) or 1) > 1:
+    # The JAX loop clamps its mesh to the devices present (a config's
+    # data_parallel 2 runs as 1 on one device); more than one left is M16.
+    data_parallel = min(int(train_config.get('data_parallel', 1) or 1),
+                        device_lib.visible_device_count(device))
+    if data_parallel > 1:
         raise NotImplementedError(
-            'data_parallel > 1 is not ported yet (ROADMAP M16)')
+            'data_parallel {} over the visible devices is not ported yet '
+            '(ROADMAP M16)'.format(data_parallel))
     if bool(config.get('summary_images', False)):
         raise NotImplementedError(
             'summary_images needs a PNG writer, not ported yet '

@@ -3,9 +3,10 @@ or imageio).
 
 Stands in for the JAX package's ``cv2.imread`` calls (the KITTI RGB
 image, the 16-bit depth and disparity maps, the 8-bit instance image),
-for the ``cv2.imwrite`` of the predicted mask PNGs (``write_png``, 8-bit
-gray) and for the ``cv2.resize(INTER_LINEAR)`` of
-``trainer.prepare_sample``.
+for the ``cv2.imwrite`` of the predicted mask PNGs, the instance images
+and the depth maps (``write_png``, 8-bit and 16-bit gray; ``png_shape``
+reads an image's size from its header) and for the
+``cv2.resize(INTER_LINEAR)`` of ``trainer.prepare_sample``.
 
 ``read_png`` undoes the five PNG row filters with a wavefront: pixel x of
 row r is decoded at step r + x, so each step takes one pixel of every
@@ -94,29 +95,42 @@ def read_png(path):
                           else (height, width, channels))
 
 
+def png_shape(path):
+    """(height, width) from a PNG's IHDR chunk, without decoding it."""
+    with open(path, 'rb') as f:
+        head = f.read(len(_SIGNATURE) + 16)
+    if not head.startswith(_SIGNATURE) or head[12:16] != b'IHDR':
+        raise ValueError('Not a PNG file with an IHDR chunk first: ' + path)
+    width, height = struct.unpack('>II', head[16:24])
+    return height, width
+
+
 def _chunk(kind, body):
     return (struct.pack('>I', len(body)) + kind + body +
             struct.pack('>I', zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
 def write_png(path, image):
-    """Writes an (H, W) or (H, W, 1) uint8 array as an 8-bit gray PNG: one
-    IDAT chunk of zlib-compressed rows, each with filter type 0 (None).
-    The pixels are what ``cv2.imwrite`` stores; the bytes need not be,
-    since the compression level and filters differ."""
+    """Writes an (H, W) or (H, W, 1) uint8 or uint16 array as an 8-bit or
+    16-bit gray PNG (16-bit samples big-endian): one IDAT chunk of
+    zlib-compressed rows, each with filter type 0 (None). The pixels are
+    what ``cv2.imwrite`` stores; the bytes need not be, since the
+    compression level and filters differ."""
     image = np.asarray(image)
     if image.ndim == 3 and image.shape[2] == 1:
         image = image[..., 0]
-    if image.ndim != 2 or image.dtype != np.uint8:
-        raise ValueError('write_png takes an (H, W) uint8 image, got {} {}'
-                         .format(image.shape, image.dtype))
+    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
+        raise ValueError('write_png takes an (H, W) uint8 or uint16 image, '
+                         'got {} {}'.format(image.shape, image.dtype))
     height, width = image.shape
     if height < 1 or width < 1:
         raise ValueError('write_png takes a non-empty image, got {}'.format(
             image.shape))
-    rows = np.zeros((height, width + 1), np.uint8)
-    rows[:, 1:] = image
-    header = struct.pack('>IIBBBBB', width, height, 8, 0, 0, 0, 0)
+    samples = image.astype(image.dtype.newbyteorder('>')).view(np.uint8)
+    rows = np.zeros((height, samples.shape[1] + 1), np.uint8)
+    rows[:, 1:] = samples
+    header = struct.pack('>IIBBBBB', width, height, 8 * image.itemsize, 0,
+                         0, 0, 0)
     data = (_SIGNATURE + _chunk(b'IHDR', header) +
             _chunk(b'IDAT', zlib.compress(rows.tobytes(), 6)) +
             _chunk(b'IEND', b''))

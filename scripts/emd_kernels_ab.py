@@ -47,6 +47,27 @@ def one(tree):
                       'k1_apart_max_rel_err': apart_rel, 'ptxas': ptxas}))
 
 
+def run_in_turns(script, trees):
+    """Runs ``script --one TREE`` for each tree in order, each in a process
+    of its own, and writes the last line of its output (its JSON line);
+    the card's name and power limit first. Stops at the first failing
+    run and returns its exit code."""
+    print(subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], check=True, capture_output=True,
+        text=True).stdout.strip())
+    for tree in trees:
+        out = subprocess.run([sys.executable, os.path.abspath(script),
+                              '--one', tree], capture_output=True,
+                             text=True)
+        if out.stdout:
+            sys.stdout.write(out.stdout.splitlines()[-1] + '\n')
+        if out.returncode != 0:
+            sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
+            return out.returncode
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--trees', nargs='+', help='checkout roots, run '
@@ -56,19 +77,7 @@ def main():
     if args.one:
         one(args.one)
         return 0
-    print(subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], check=True, capture_output=True,
-        text=True).stdout.strip())
-    for tree in args.trees:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--one', tree], capture_output=True,
-                             text=True)
-        sys.stdout.write(out.stdout)
-        if out.returncode != 0:
-            sys.stderr.write(out.stderr[-4000:])
-            return out.returncode
-    return 0
+    return run_in_turns(__file__, args.trees)
 
 
 if __name__ == '__main__':

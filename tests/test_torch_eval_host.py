@@ -563,13 +563,17 @@ def test_ledger_file_format(tmp_path, monkeypatch):
 
 
 def test_run_latest_checkpoints_ledgers_val_mode_only(tmp_path, monkeypatch):
+    """run_latest_checkpoints writes no ledger in val mode either (as the
+    JAX evaluator: only the polling loop writes it; the two held side by
+    side in tests/test_torch_evaluator.py::test_ledger_matches_jax_evaluator),
+    so a poller afterwards evaluates every step."""
     ev, evaluated, _ = make_polling_evaluator(tmp_path, monkeypatch,
                                               [6, 2, 4])
     ev.run_latest_checkpoints([4, 6, 8])
-    assert evaluated == [4, 6] and ev.get_evaluated_ckpts() == {4, 6}
-    # a poller then evaluates only what is left
+    assert evaluated == [4, 6] and not os.path.exists(ev.ledger_path)
     ev.repeated_checkpoint_run(max_wait_iterations=1)
-    assert evaluated == [4, 6, 2]
+    assert evaluated == [4, 6, 2, 4, 6]
+    assert ev.get_evaluated_ckpts() == {2, 4, 6}
 
     ev, evaluated, _ = make_polling_evaluator(tmp_path / 'test', monkeypatch,
                                               [2], eval_mode='test')
@@ -594,7 +598,13 @@ def test_native_eval_failure_reaches_the_polling_loop(tmp_path,
     assert ev._native_jobs == []
 
 
-def test_evaluator_refuses_data_parallel(tmp_path):
+def test_evaluator_refuses_data_parallel(tmp_path, monkeypatch):
+    # eval_data_parallel is clamped to the visible devices (1 on the CPU,
+    # where 2 runs as 1: tests/test_torch_evaluator.py); it raises only
+    # where more than one is left (two devices counted here)
+    from monopsr_torch.utils import device as device_lib
+    assert device_lib.visible_device_count(torch.device('cpu')) == 1
+    monkeypatch.setattr(device_lib, 'visible_device_count', lambda d: 2)
     for key in ('eval_data_parallel', 'data_parallel'):
         raw = _raw_config(tmp_path, 1)
         raw['train_config'].pop('eval_data_parallel', None)

@@ -253,8 +253,10 @@ def test_val_mode_matches_jax_evaluator(runs):
                        ndmin=2)) for n in names)
     # one metric step per dispatch group of eval_batch 4
     assert run['launches'] == 0        # the CPU runs the plain EMD
-    with open(run['pev'].ledger_path) as f:
-        assert f.read().split() == [str(STEP)]
+    # run_latest_checkpoints writes no ledger, as JAX's evaluator, whose
+    # run_checkpoint_once left none either
+    assert not os.path.exists(run['jev'].ledger_path)
+    assert not os.path.exists(run['pev'].ledger_path)
 
 
 def test_test_mode_matches_jax_evaluator(runs):
@@ -297,6 +299,93 @@ def test_eval_batch_gives_the_same_boxes(runs, eval_batch, tmp_path):
             np.loadtxt(os.path.join(got_dir, name)),
             np.loadtxt(os.path.join(want_dir, name)), rtol=1e-4, atol=1e-4,
             err_msg=name)
+
+
+def test_eval_data_parallel_2_runs_as_jax_on_one_device(runs):
+    """data_parallel and eval_data_parallel 2 on one device: the JAX
+    evaluator clamps its mesh to the devices present; so does the port's,
+    and writes the same files as the JAX evaluator under the same
+    config."""
+    raw_j = _split(_raw_config(runs['base'] / 'jax_dp2', STEP), 'val')
+    raw_t = _split(runs['raw_t'], 'val')
+    for raw in (raw_j, raw_t):
+        raw['train_config']['data_parallel'] = 2
+        raw['train_config']['eval_data_parallel'] = 2
+    jconfig = JaxConfigObj(raw_j)
+    jev = JaxEvaluator(jconfig, JaxKittiDataset(jconfig.dataset_config,
+                                                'val'),
+                       eval_mode='val', do_kitti_native_eval=False)
+    jev.run_checkpoint_once(runs['host'], STEP)
+    pconfig = ConfigObj(raw_t)          # restores the shared checkpoint,
+    out_dir = runs['base'] / 'torch_dp2'  # writes apart
+    pconfig.exp_output_dir = str(out_dir)
+    pconfig.logdir = str(out_dir / 'logs')
+    pconfig.pred_dir = str(out_dir / 'predictions')
+    pev = evaluator.Evaluator(
+        pconfig, KittiDataset(pconfig.dataset_config, 'val'), 'val',
+        do_kitti_native_eval=False, device='cpu')
+    assert pev.eval_batch == jev.eval_batch == 4
+    pev.run_latest_checkpoints([STEP])
+    run = dict(runs['val'], jconfig=jconfig, pconfig=pconfig)
+    names = _check_box_txts(run)
+    _check_kitti_files(run)
+    _check_maps_and_masks(run, names)
+
+
+def test_ledger_matches_jax_evaluator(runs, monkeypatch, tmp_path):
+    """Which steps each polling call evaluates and what the ledger
+    holds after each call, the JAX evaluator's and the port's, on the
+    same checkpoint steps (the evaluation itself stubbed out):
+    run_latest_checkpoints leaves the ledger alone, only
+    repeated_checkpoint_run appends."""
+    from monopsr_tpu.train import trainer as jax_trainer
+
+    class Manager:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def all_steps(self):
+            return list(steps)
+
+    steps = [2, 4]
+    monkeypatch.setattr(jax_trainer, 'create_checkpoint_manager', Manager)
+    monkeypatch.setattr(evaluator.trainer_lib, 'CheckpointManager', Manager)
+    history = {}
+    for name, ev in (('jax', runs['val']['jev']),
+                     ('port', runs['val']['pev'])):
+        done = []
+        monkeypatch.setattr(ev, 'ledger_path',
+                            str(tmp_path / (name + '_evaluated_val.txt')))
+        monkeypatch.setattr(ev, 'eval_wait_interval', 0)
+        monkeypatch.setattr(ev, 'restore_checkpoint', lambda *a: None)
+        monkeypatch.setattr(ev, 'run_checkpoint_once',
+                            lambda state, step: done.append(step))
+        monkeypatch.setattr(ev, '_first_valid_sample', lambda: None,
+                            raising=False)
+
+        def ledger():
+            if not os.path.exists(ev.ledger_path):
+                return None
+            with open(ev.ledger_path) as f:
+                return f.read()
+
+        calls = []
+        steps[:] = [2, 4]
+        for call in (lambda: ev.run_latest_checkpoints('all'),
+                     lambda: ev.repeated_checkpoint_run(1),
+                     lambda: steps.append(6),
+                     lambda: ev.run_latest_checkpoints([6]),
+                     lambda: ev.repeated_checkpoint_run(1),
+                     lambda: ev.run_latest_checkpoints(None)):
+            del done[:]
+            call()
+            calls.append((list(done), ledger()))
+        history[name] = calls
+    assert history['port'] == history['jax']
+    assert history['jax'] == [([2, 4], None), ([2, 4], '2\n4\n'),
+                              ([], '2\n4\n'), ([6], '2\n4\n'),
+                              ([6], '2\n4\n6\n'),
+                              ([2, 4, 6], '2\n4\n6\n')]
 
 
 def test_restore_reads_the_eval_weights_only(runs):
@@ -344,7 +433,9 @@ def test_cli_main_runs_on_cpu(tmp_path, monkeypatch, capsys):
     results = run_evaluation.main(['--config_path', str(path),
                                    '--device', 'cpu'])
     assert [r['step'] for r in results] == [2]
-    assert (out_dir / 'evaluated_val.txt').read_text().split() == ['2']
+    # without --repeated no ledger is written (JAX: only the polling loop
+    # writes it; test_ledger_matches_jax_evaluator)
+    assert not (out_dir / 'evaluated_val.txt').exists()
     record, = _eval_records(out_dir, 'val')
     assert all(np.isfinite(v) for v in record['losses'].values())
     pred = out_dir / 'predictions'
@@ -377,4 +468,4 @@ def test_cli_main_runs_on_cpu(tmp_path, monkeypatch, capsys):
     run_inference.main(['--checkpoint_name', 'tiny_eval', '--device', 'cpu',
                         '--ckpt_num', 'all', '--det_2d_score_thr', '0.2',
                         '0.2', '0.2'])
-    assert (out_dir / 'evaluated_val.txt').read_text().split() == ['2']
+    assert not (out_dir / 'evaluated_val.txt').exists()

@@ -11,7 +11,8 @@ and resizes with.
   bound is 1 LSB (the JAX package's own allowance between cv2's two
   INTER_LINEAR paths); each case states its share of differing pixels.
   It writes out OpenCV's fixed-point arithmetic, so the share is 0 here.
-- ``write_png`` (8-bit gray, the evaluator's mask PNGs): read back by
+- ``write_png`` (8-bit gray, the evaluator's mask PNGs; its 16-bit gray
+  form is held in tests/test_torch_data_tools.py): read back by
   ``cv2.imread(IMREAD_GRAYSCALE)`` and by ``read_png``, pixel-equal to
   what was written, at odd sizes and on a fixture instance image.
 """
@@ -219,7 +220,8 @@ def test_write_png_of_a_fixture_image_and_refusals(tmp_path):
     image_io.write_png(path, image)
     np.testing.assert_array_equal(cv2.imread(path, cv2.IMREAD_GRAYSCALE),
                                   cv2.imread(src, cv2.IMREAD_GRAYSCALE))
-    for bad in (np.zeros((4, 4), np.uint16), np.zeros((4, 4, 3), np.uint8),
+    # (uint16 is written as 16-bit gray: tests/test_torch_data_tools.py)
+    for bad in (np.zeros((4, 4), np.int16), np.zeros((4, 4, 3), np.uint8),
                 np.zeros((0, 4), np.uint8)):
         with pytest.raises(ValueError, match='write_png'):
             image_io.write_png(path, bad)

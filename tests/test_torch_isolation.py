@@ -31,14 +31,15 @@ print(len(names), leaked)
 
 def test_package_imports_without_jax_or_reference():
     """Every module of the port, the train modules, the config reader,
-    the KITTI dataset layer, the evaluator's host side and the three CLIs
-    included (and chip_smoke.py), imports with jax, flax, optax, cv2, PIL,
+    the KITTI dataset layer, the evaluator's host side, the three CLIs
+    and the data-preparation tools (monopsr_torch.tools) included (and
+    chip_smoke.py), imports with jax, flax, optax, cv2, PIL,
     yaml and monopsr_tpu made unimportable."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 54
+    assert int(count) >= 58
     assert leaked.strip() == '[]'
 
 
@@ -110,3 +111,33 @@ def test_kernel_wrapper_refuses_other_devices():
         emd.emd_cost_fused(x, x)
     with pytest.raises(ValueError, match='CPU or CUDA'):
         emd.emd_distance(x, x)
+
+
+def test_resolve_device_sets_the_float32_policy(monkeypatch):
+    """TF32 off for cuBLAS and cuDNN, set by the one function every entry
+    point passes through when it resolves a CUDA device."""
+    from monopsr_torch.utils import device
+
+    def set_flags(value):
+        torch.backends.cuda.matmul.allow_tf32 = value
+        torch.backends.cudnn.allow_tf32 = value
+
+    def flags():
+        return (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+
+    before = flags()
+    try:
+        set_flags(True)
+        device.set_float32_precision()
+        assert flags() == (False, False)
+
+        set_flags(True)
+        assert device.resolve_device('cpu') == torch.device('cpu')
+        assert flags() == (True, True)        # the CPU leaves them alone
+        monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+        assert device.resolve_device() == torch.device('cuda')
+        assert flags() == (False, False)
+    finally:
+        set_flags(before[0])
+        torch.backends.cudnn.allow_tf32 = before[1]

@@ -114,7 +114,7 @@ def runs(tmp_path_factory):
     state = trainer.train(pconfig, KittiDataset(pconfig.dataset_config,
                                                 'train'), device='cpu')
     return dict(base=base, raw_j=raw_j, raw_t=raw_t, jconfig=jconfig,
-                pconfig=pconfig, state=state,
+                pconfig=pconfig, state=state, host=host,
                 jax_log=_log(jconfig), port_log=_log(pconfig))
 
 
@@ -183,6 +183,27 @@ def test_resume_continues_from_latest_checkpoint(runs):
     _check_losses({k: v for k, v in log.items() if k > 3},
                   {k: v for k, v in _loss_records(_log(jconfig)).items()
                    if k > 3}, [4, 5])
+
+
+def test_data_parallel_2_runs_as_jax_on_one_device(runs):
+    """data_parallel 2 on one device: the JAX loop clamps its mesh to the
+    devices present and trains at batch 1 x batch_size; so does the
+    port's, from the same initial state, giving the same JSONL."""
+    raw_j = _raw_config(runs['base'] / 'jax_dp2', 2)
+    raw_t = _raw_config(runs['base'] / 'torch_dp2', 2)
+    for raw in (raw_j, raw_t):
+        raw['train_config']['data_parallel'] = 2
+    jconfig, pconfig = JaxConfigObj(raw_j), ConfigObj(raw_t)
+    trainer.save_checkpoint(
+        trainer.CheckpointManager(pconfig.checkpoint_dir),
+        _port_state(pconfig, runs['host']), 0)
+    jax_trainer.train(jconfig, JaxKittiDataset(jconfig.dataset_config,
+                                               'train'))
+    state = trainer.train(pconfig, KittiDataset(pconfig.dataset_config,
+                                                'train'), device='cpu')
+    assert state.step == 2
+    _check_losses(_loss_records(_log(pconfig)), _loss_records(_log(jconfig)),
+                  [1, 2])
 
 
 def test_max_checkpoints_to_keep_prunes(tmp_path):
@@ -291,7 +312,11 @@ def test_loader_hands_a_thread_failure_to_the_consumer():
     assert not any(t.is_alive() for t in loader._threads)
 
 
-def test_loop_refuses_unported_options(tmp_path):
+def test_loop_refuses_unported_options(tmp_path, monkeypatch):
+    # data_parallel is clamped to the visible devices: it raises only
+    # where more than one is left (two devices counted here)
+    from monopsr_torch.utils import device as device_lib
+    monkeypatch.setattr(device_lib, 'visible_device_count', lambda d: 2)
     for key, value, match in (('data_parallel', 2, 'M16'),
                               ('summary_images', True, 'M18')):
         pconfig = ConfigObj(_raw_config(tmp_path, 1))
