@@ -88,6 +88,20 @@ Phases, any failure of which exits non-zero:
    pixel against the shipped instance images) and from the card's; the
    fill's device and CPU ms per map, each tool's s per sample and
    start-up.
+14. data parallel: two ranks started by ``parallel.data_parallel.launch``
+   (NCCL on cuda:0 and cuda:1 when two cards are visible, else both on
+   cuda:0 over gloo) against one process on the card: two train steps of
+   the production config at a global batch of 2 in float32 and in
+   bfloat16, and in bfloat16 with the gradients left per rank, which
+   must fail the bfloat16 gate; then the ``Evaluator`` on phase 10's
+   tiny config over the fixture's val split (``data_parallel_phase``
+   states the tolerances); ms/step of one rank and of two, and K1's
+   launches per rank.
+15. accuracy gate, short: ``python -m monopsr_torch.experiments
+   .accuracy_gate --steps 20 --splits 1`` in a subprocess on the card
+   must reach its verdict (exit 0, or exit 1 with its ``ACCURACY GATE
+   FAILED: ...`` line) with every key of the JAX gate's report; printed:
+   the verdict and the train, eval and native AP seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -112,12 +126,13 @@ import monopsr_torch
 from monopsr_torch import config as config_lib
 from monopsr_torch import constants as C
 from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
-from monopsr_torch.eval import evaluator
+from monopsr_torch.eval import evaluator, native_eval
 from monopsr_torch.geometry import class_stats
 from monopsr_torch.models import monopsr
 from monopsr_torch.models.monopsr_net import NetConfig
 from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
+from monopsr_torch.parallel import data_parallel
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer
 from monopsr_torch.train.train_state import TrainState
@@ -1042,11 +1057,13 @@ def train_loop_config(max_iterations):
         ('summary_interval', '1', 1), ('checkpoint_interval', '2', 1)])
 
 
-def run_cli(module, args, first_prefix, package='monopsr_torch.experiments'):
+def run_cli(module, args, first_prefix, package='monopsr_torch.experiments',
+            exit_codes=(0,)):
     """Runs ``python -m <package>.<module> <args>`` on the card in a
-    subprocess; returns its printed lines and the seconds from its start
-    to its first line starting with ``first_prefix`` (None if none).
-    Killed after CLI_TIMEOUT_S; fails unless it exits 0."""
+    subprocess; returns its printed lines, the seconds from its start to
+    its first line starting with ``first_prefix`` (None if none) and its
+    exit code. Killed after CLI_TIMEOUT_S; fails unless its exit code is
+    one of ``exit_codes``."""
     cmd = [sys.executable, '-u', '-m', package + '.' + module] + list(args)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=monopsr_torch.top_dir(),
@@ -1066,15 +1083,15 @@ def run_cli(module, args, first_prefix, package='monopsr_torch.experiments'):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    if rc != 0:
+    if rc not in exit_codes:
         print('\n'.join(lines[-40:]), file=sys.stderr)
         fail('{}: the CLI exited {} ({})'.format(module, rc, ' '.join(args)))
-    return lines, first_s
+    return lines, first_s, rc
 
 
 def run_training_cli(config_path):
-    """The training CLI on the card; its lines and the seconds from its
-    start to its first step line."""
+    """The training CLI on the card (``run_cli``, timed to its first
+    step line)."""
     return run_cli('run_training', ['--config_path', config_path], 'step ')
 
 
@@ -1136,13 +1153,13 @@ def train_loop_phase(card):
     config_path = train_loop_config(4)
     config = config_lib.parse_yaml_config(config_path)
     torch.cuda.empty_cache()
-    lines1, start1 = run_training_cli(config_path)
+    lines1, start1, _ = run_training_cli(config_path)
     log1 = read_train_log(config)
     manager = trainer.CheckpointManager(config.checkpoint_dir)
     if manager.all_steps() != [2, 4]:
         fail('train loop: checkpoints {} after 4 steps'.format(
             manager.all_steps()))
-    lines2, start2 = run_training_cli(train_loop_config(6))
+    lines2, start2, _ = run_training_cli(train_loop_config(6))
     log2 = read_train_log(config)[len(log1):]
     if manager.all_steps() != [2, 4, 6]:
         fail('train loop: checkpoints {} after the resumed run'.format(
@@ -1215,16 +1232,11 @@ EVAL_TINY_NAME = 'chip_smoke_eval_tiny'
 EVAL_TINY_BATCH = 3
 
 
-def eval_reference(seed):
-    """The Evaluator on a tiny float32 copy of the production config
-    (resnet_tiny, 4 boxes, 48x160 input, 16x16 ROIs) on the fixture's val
-    split, at eval batch EVAL_TINY_BATCH (a padded tail group), from one
-    checkpoint written by ``save_checkpoint`` (seeded random weights, the
-    EMA set apart at 0.9 of them), on the card and on the CPU. Fails
-    unless the box_3d txts agree within rtol 1e-4 + atol 1e-4 (the bound
-    the CPU tests hold the port to JAX with), each box's METRIC_EMD (K1 on
-    the card, the plain version on the CPU) within 1e-4 relative, and K1
-    launched once per dispatch group on the card."""
+def tiny_eval_checkpoint(seed, base):
+    """The tiny float32 copy of the production config (resnet_tiny, 4
+    boxes, 48x160 input, 16x16 ROIs, eval batch EVAL_TINY_BATCH) and its
+    checkpoint 1 under ``base`` (emptied first): seeded random weights,
+    the EMA set apart at 0.9 of them. Returns (config path, config)."""
     path = production_yaml(EVAL_TINY_NAME, [
         ('seed', '0', 1), ('num_boxes', '4', 1),
         ('image_input_shape', '[48, 160]', 1),
@@ -1233,8 +1245,6 @@ def eval_reference(seed):
         ('layer_sizes', '[16, 16]', 2),
         ('compute_dtype', "'float32'\n    resnet: 'resnet_tiny'", 1),
         ('eval_batch', str(EVAL_TINY_BATCH), 1)])
-    base = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke',
-                        EVAL_TINY_NAME)
     shutil.rmtree(base, ignore_errors=True)
     config = config_lib.parse_yaml_config(path, output_base_dir=base)
     net, _ = monopsr.create_net_from_config(
@@ -1247,16 +1257,56 @@ def eval_reference(seed):
             value.mul_(0.9)
     trainer.save_checkpoint(trainer.CheckpointManager(config.checkpoint_dir),
                             state, 1)
-    del net, state
+    return path, config
+
+
+def tiny_evaluator(path, checkpoint_dir, out_base, device):
+    """An Evaluator of the tiny config's val split on ``device`` reading
+    ``checkpoint_dir`` and writing under ``out_base``, native AP off."""
+    config = config_lib.parse_yaml_config(path, output_base_dir=out_base)
+    config.checkpoint_dir = checkpoint_dir
+    config.dataset_config.data_split = 'val'
+    return config, evaluator.Evaluator(
+        config, KittiDataset(config.dataset_config, 'val'), 'val',
+        do_kitti_native_eval=False, device=device)
+
+
+def compare_box_files(dirs, label):
+    """The box_3d txts of two runs: the same files, rows within rtol 1e-4
+    + atol 1e-4; returns the worst error as a share of that tolerance."""
+    names = sorted(os.listdir(dirs[0]))
+    if sorted(os.listdir(dirs[1])) != names:
+        fail('{}: box_3d files {} vs {}'.format(
+            label, names, sorted(os.listdir(dirs[1]))))
+    excess = 0.0
+    for name in names:
+        want, got = (np.loadtxt(os.path.join(d, name), ndmin=2)
+                     for d in dirs)
+        if got.shape != want.shape:
+            fail('{}: {} rows {} vs {}'.format(label, name, got.shape,
+                                              want.shape))
+        excess = max(excess, float(
+            (np.abs(got - want) / (1e-4 + 1e-4 * np.abs(want))).max()))
+    return names, excess
+
+
+def eval_reference(seed):
+    """The Evaluator on a tiny float32 copy of the production config
+    (resnet_tiny, 4 boxes, 48x160 input, 16x16 ROIs) on the fixture's val
+    split, at eval batch EVAL_TINY_BATCH (a padded tail group), from one
+    checkpoint written by ``save_checkpoint`` (seeded random weights, the
+    EMA set apart at 0.9 of them), on the card and on the CPU. Fails
+    unless the box_3d txts agree within rtol 1e-4 + atol 1e-4 (the bound
+    the CPU tests hold the port to JAX with), each box's METRIC_EMD (K1 on
+    the card, the plain version on the CPU) within 1e-4 relative, and K1
+    launched once per dispatch group on the card."""
+    base = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke',
+                        EVAL_TINY_NAME)
+    path, config = tiny_eval_checkpoint(seed, base)
     runs = {}
     for device in ('cpu', 'cuda'):
-        dev_config = config_lib.parse_yaml_config(
-            path, output_base_dir=os.path.join(base, device))
-        dev_config.checkpoint_dir = config.checkpoint_dir
-        dev_config.dataset_config.data_split = 'val'
-        ev = evaluator.Evaluator(
-            dev_config, KittiDataset(dev_config.dataset_config, 'val'), 'val',
-            do_kitti_native_eval=False, device=device)
+        dev_config, ev = tiny_evaluator(path, config.checkpoint_dir,
+                                        os.path.join(base, device), device)
         emd_ops.emd_cost_fused.launches = 0
         result, = ev.run_latest_checkpoints([1])
         runs[device] = dict(config=dev_config, result=result,
@@ -1270,19 +1320,10 @@ def eval_reference(seed):
                                    EVAL_TINY_BATCH))
     dirs = [os.path.join(r['config'].pred_dir, 'box_3d', 'val', '1')
             for r in (cpu, card)]
-    names = sorted(os.listdir(dirs[0]))
-    if len(names) != valid or sorted(os.listdir(dirs[1])) != names:
-        fail('eval reference: box_3d files {} vs {}'.format(
-            names, sorted(os.listdir(dirs[1]))))
-    box_excess = 0.0
-    for name in names:
-        want, got = (np.loadtxt(os.path.join(d, name), ndmin=2)
-                     for d in dirs)
-        if got.shape != want.shape:
-            fail('eval reference: {} rows {} vs {}'.format(
-                name, got.shape, want.shape))
-        box_excess = max(box_excess, float(
-            (np.abs(got - want) / (1e-4 + 1e-4 * np.abs(want))).max()))
+    names, box_excess = compare_box_files(dirs, 'eval reference')
+    if len(names) != valid:
+        fail('eval reference: {} box_3d files for {} valid samples'.format(
+            len(names), valid))
     want = cpu['result']['metrics_per_box'][C.METRIC_EMD]
     got = card['result']['metrics_per_box'][C.METRIC_EMD]
     emd_rel = float((np.abs(got - want) /
@@ -1372,7 +1413,7 @@ def eval_cli_phase(card):
                         TRAIN_LOOP_NAME + '.yaml')
     steps = [2, 4, 6]
     torch.cuda.empty_cache()
-    val_lines, val_first = run_cli('run_evaluation', [
+    val_lines, val_first, _ = run_cli('run_evaluation', [
         '--config_path', path, '--data_split', 'val'], 'first sample saved')
     val = cli_numbers(val_lines)
 
@@ -1422,10 +1463,10 @@ def eval_cli_phase(card):
         aps['low IoU' if regime else 'standard'] = blocks[6]
 
     # Inference at step 6 (its val outputs go to the same directories)
-    inf_lines, inf_first = run_cli('run_inference', [
+    inf_lines, inf_first, _ = run_cli('run_inference', [
         '--config_path', path, '--data_split', 'val', '--ckpt_num', '6'],
         'first sample saved')
-    test_lines, test_first = run_cli('run_inference', [
+    test_lines, test_first, _ = run_cli('run_inference', [
         '--config_path', path, '--data_split', 'test', '--ckpt_num', '6'],
         'first sample saved')
     inf, test = cli_numbers(inf_lines), cli_numbers(test_lines)
@@ -1676,8 +1717,9 @@ def data_prep_phase(card):
 
     def tool(module, args):
         t0 = time.perf_counter()
-        lines, start_s = run_cli(module, ['--data_split_dir', split] + args,
-                                 '1 / ', package='monopsr_torch.tools')
+        lines, start_s, _ = run_cli(
+            module, ['--data_split_dir', split] + args, '1 / ',
+            package='monopsr_torch.tools')
         wall = time.perf_counter() - t0
         done = [line for line in lines if re.match(r'\d+ / \d+ ', line)]
         if len(done) != len(names) or start_s is None:
@@ -1767,6 +1809,417 @@ def data_prep_phase(card):
     return report
 
 
+# --------------------------------------------------------------------------
+# Data parallel: two ranks against one process
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_STEPS = 2
+DP_PARTS = ('params', 'ema', 'batch_stats', 'mu', 'nu')
+DP_UPDATE_PARTS = ('params', 'ema', 'mu', 'nu')
+DP_UPDATE_RTOL = 1e-2          # float32 parameters and EMA
+DP_BF16_YARDSTICK_FACTOR = 2   # bfloat16, over bfloat16 vs float32
+GATE_KEYS = ('metric', 'split_index', 'split_rotation', 'val_frames',
+             'steps', 'step_evaluated', 'train_seconds', 'train', 'gates',
+             'val', 'split_checks', 'splits', 'num_splits', 'checks',
+             'pass')    # scripts/accuracy_gate.py's report
+
+
+def dp_train_steps(cfg, checkpoint_dir, batch, device):
+    """DP_STEPS train steps of the production loss from checkpoint 0 on
+    this rank's rows of ``batch`` (all of it without a process group):
+    (snapshot on the host, losses averaged over ranks, ms per step, the
+    state's ``dp_digest``)."""
+    net = monopsr.create_net(cfg, device=device, seed=0)
+    tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+    step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx, use_ema,
+                                   decay, device=device)
+    state = trainer.create_train_state(net, tx, use_ema)
+    trainer.restore_checkpoint(trainer.CheckpointManager(checkpoint_dir), 0,
+                               state)
+    data_parallel.replicate(trainer.state_tensors(state))
+    rows = data_parallel.shard_rows(batch)
+    ms = []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, losses = step(state, rows)
+        data_parallel.mean_over_ranks(losses.values())
+        torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return (dp_snapshot(state), {k: float(v) for k, v in losses.items()}, ms,
+            dp_digest(state))
+
+
+def dp_parts(state):
+    """The parts of a train state that phase 14 compares, on its device."""
+    return {'params': state.params, 'ema': state.ema_params,
+            'batch_stats': {k: v for k, v in state.batch_stats.items()
+                            if 'map_decoder' in k and 'running' in k},
+            'mu': state.opt_state['mu'], 'nu': state.opt_state['nu']}
+
+
+def dp_snapshot(state):
+    """``dp_parts`` on the host."""
+    return {part: {k: v.detach().cpu() for k, v in leaves.items()}
+            for part, leaves in dp_parts(state).items()}
+
+
+def dp_digest(state):
+    """Each leaf's float64 sum and sum of squares, per part of
+    ``dp_parts``, on the host: equal for bitwise equal states (the sums
+    run the same deterministic reduction on the same bits)."""
+    return {part: torch.stack([torch.stack([v.double().sum(),
+                                            v.double().square().sum()])
+                               for v in leaves.values()]).cpu()
+            for part, leaves in dp_parts(state).items()}
+
+
+def dp_rank(device, cfgs, checkpoint_dir, batch, eval_path, eval_ckpt_dir,
+            out_dir):
+    """One rank of phase 14 (started by ``data_parallel.launch``): the
+    train steps in each compute dtype, the bfloat16 steps again with the
+    gradients left per rank (the mean over ranks planted out), then the
+    tiny Evaluator; rank 0 saves what the phase compares, every rank its
+    states' digests and its K1 launches."""
+    rank = data_parallel.rank()
+    mean_over_ranks = data_parallel.mean_over_ranks
+    runs = list(cfgs.items()) + [('bfloat16_planted', cfgs['bfloat16'])]
+    for name, cfg in runs:
+        if name == 'bfloat16_planted':
+            data_parallel.mean_over_ranks = lambda tensors: None
+        snap, losses, ms, digest = dp_train_steps(cfg, checkpoint_dir, batch,
+                                                  device)
+        data_parallel.mean_over_ranks = mean_over_ranks
+        if rank == 0:
+            torch.save(dict(snap=snap, losses=losses, ms=ms, digest=digest),
+                       os.path.join(out_dir, 'train_{}.pt'.format(name)))
+        torch.save(digest, os.path.join(out_dir, 'digest_{}_rank{}.pt'
+                                        .format(name, rank)))
+        del snap
+        torch.cuda.empty_cache()
+    _, ev = tiny_evaluator(eval_path, eval_ckpt_dir,
+                           os.path.join(out_dir, 'eval_ranks'), device)
+    emd_ops.emd_cost_fused.launches = 0
+    result = ev.run_latest_checkpoints([1])[0]
+    with open(os.path.join(out_dir, 'eval_rank{}.json'.format(rank)),
+              'w') as f:
+        json.dump({'launches': emd_ops.emd_cost_fused.launches,
+                   'eval_batch': ev.eval_batch}, f)
+    if rank == 0:
+        np.save(os.path.join(out_dir, 'eval_emd.npy'),
+                result['metrics_per_box'][C.METRIC_EMD])
+
+
+def dp_float32_shares(got, want):
+    """The float32 elementwise deviations of two ranks from one process
+    as a share of their tolerance (``data_parallel_phase``), for the
+    decoder running statistics and the Adam moments."""
+    shares = {}
+    for part in ('batch_stats', 'mu', 'nu'):
+        scale = max(float(v.abs().max()) for v in want[part].values())
+        worst = 0.0
+        for key, w in want[part].items():
+            g, w = got[part][key].float(), w.float()
+            if part == 'batch_stats':
+                tol = 1e-3 * float(w.abs().max()) + 1e-4 * w.abs()
+            else:
+                tol = 1e-2 * scale + 1e-4 * w.abs()
+            worst = max(worst, float(((g - w).abs() / tol).max()))
+        shares[part] = worst
+    return shares
+
+
+def dp_ranks_differ(base, name):
+    """The parts of ``dp_parts`` in which run ``name``'s ranks ended with
+    other digests (none when every rank holds the same bits)."""
+    digests = [torch.load(os.path.join(base, 'digest_{}_rank{}.pt'.format(
+        name, rank)), weights_only=True) for rank in range(DP_RANKS)]
+    return [part for part in digests[0]
+            if not all(torch.equal(d[part], digests[0][part])
+                       for d in digests[1:])]
+
+
+def dp_update_deviation(got, want, start):
+    """For each of DP_UPDATE_PARTS, the L2 norm over all leaves of
+    ``got - want`` as a share of that of ``want - start``: how far two
+    runs' updates part, against how far the update went."""
+    out = {}
+    for part in DP_UPDATE_PARTS:
+        off = moved = 0.0
+        for key, w in want[part].items():
+            w = w.double()
+            off += float(((got[part][key].double() - w) ** 2).sum())
+            moved += float(((w - start[part][key].double()) ** 2).sum())
+        out[part] = (off / moved) ** 0.5
+    return out
+
+
+def data_parallel_phase(seed, card):
+    """Two data-parallel ranks against one process, on the card.
+
+    The ranks are started by ``data_parallel.launch`` with two ranks: NCCL
+    on cuda:0 and cuda:1 when two cards are visible, else both ranks on
+    cuda:0 over gloo, which takes CUDA tensors. (A config's
+    ``data_parallel: 2`` would be clamped to 1 on one card, as JAX clamps
+    its mesh; the phase calls ``launch`` itself.) With both ranks on one
+    card the ms/step of two ranks measure correctness, not scaling.
+
+    Train: the production config (production loss, Adam + EMA from
+    TRAIN_CONFIG) from one seeded checkpoint, DP_STEPS steps at a global
+    batch of 2 synthetic samples, one per rank, against one process at
+    batch 2 on the same card; in float32 and then in bfloat16 (the
+    production dtype). Adam moves an element whose gradient is rounding
+    noise (a decoder conv bias ahead of a train-mode batch norm; any
+    element whose gradient cancels to near 0) by up to ~lr either way,
+    so the parameters, the EMA and, in bfloat16, the moments are held as
+    a whole (``dp_update_deviation``): the L2 norm of two ranks'
+    deviation from one process over all leaves, as a share of the L2
+    norm of what the steps moved them. Float32, as
+    tests/test_torch_data_parallel.py holds the ranks on the CPU:
+    parameters and EMA within DP_UPDATE_RTOL of their update, Adam
+    moments elementwise within 1e-2 of the moment's largest value over
+    all leaves + rtol 1e-4, decoder running statistics within 1e-3 of
+    each leaf's largest value + rtol 1e-4, logged losses within rtol
+    1e-4 + 1e-4 of max(1, |loss|). Bfloat16: everything finite; the
+    parameters, EMA and Adam moments within DP_BF16_YARDSTICK_FACTOR
+    times the same share measured between one process's bfloat16 steps
+    and its float32 ones (a random-init net's bfloat16 update is as far
+    from two ranks' as from float32's: 0.96 of it for the parameters, on
+    the H100); phase 12's 5% bound on what the forward gives, the logged
+    losses (5% of the largest loss, as phase 12 takes 5% of an output's
+    largest value) and the decoder running statistics (5% of each leaf's
+    largest value). In both dtypes the ranks must end with the same bits
+    (``dp_digest`` of every part equal): each steps on the one averaged
+    gradient. The ranks then take the bfloat16 steps again with the
+    gradients left per rank (the mean over ranks planted out): that run
+    must fail the bfloat16 gate.
+
+    Eval: phase 10's tiny config and checkpoint on the fixture's val
+    split, two ranks (eval_batch 3 rounded up to 4) against one rank:
+    the box_3d txts within rtol 1e-4 + atol 1e-4 and each box's
+    METRIC_EMD within 1e-4 relative, as phase 10 holds the card to the
+    CPU; every rank launches K1 once per dispatch group on its rows."""
+    base = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke',
+                        'data_parallel')
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    cfgs = {'float32': dataclasses.replace(production_config(),
+                                           compute_dtype='float32'),
+            'bfloat16': production_config()}
+    batch = synthetic_batch(seed, cfgs['bfloat16'], DP_RANKS, (375, 1242),
+                            C.DEPTH_PAD_SHAPE)
+    ckpt_dir = os.path.join(base, 'checkpoints')
+    net = monopsr.create_net(cfgs['bfloat16'], device='cuda', seed=seed)
+    tx, _, use_ema, _ = opt_lib.build_optimizer(TRAIN_CONFIG)
+    state = trainer.create_train_state(net, tx, use_ema)
+    trainer.save_checkpoint(trainer.CheckpointManager(ckpt_dir), state, 0)
+    start = dp_snapshot(state)
+    del net, state
+    eval_path, eval_config = tiny_eval_checkpoint(
+        seed, os.path.join(base, 'eval'))
+    torch.cuda.empty_cache()
+
+    backend = data_parallel.backend_for(torch.device('cuda'), DP_RANKS)
+    t0 = time.time()
+    data_parallel.launch(dp_rank, DP_RANKS, 'cuda', cfgs, ckpt_dir, batch,
+                         eval_path, eval_config.checkpoint_dir, base)
+    ranks_s = time.time() - t0
+
+    report = dict(ranks=DP_RANKS, backend=backend, ranks_s=ranks_s)
+    one = {}
+    for dtype, cfg in cfgs.items():
+        two = torch.load(os.path.join(base, 'train_{}.pt'.format(dtype)),
+                         weights_only=True)
+        one[dtype], losses, ms, _ = dp_train_steps(cfg, ckpt_dir, batch,
+                                                   'cuda')
+        for part in DP_PARTS:
+            if not all(bool(torch.isfinite(v).all())
+                       for v in two['snap'][part].values()):
+                fail('data parallel {}: {} not finite'.format(dtype, part))
+        if not all(np.isfinite(v) for v in two['losses'].values()):
+            fail('data parallel {}: losses not finite'.format(dtype))
+        deviation = dp_update_deviation(two['snap'], one[dtype], start)
+        ranks_differ = dp_ranks_differ(base, dtype)
+        if ranks_differ:
+            fail('data parallel {}: the ranks end with other states in {}'
+                 .format(dtype, ranks_differ))
+        if dtype == 'float32':
+            shares = dp_float32_shares(two['snap'], one[dtype])
+            for part in ('params', 'ema'):
+                shares[part] = deviation[part] / DP_UPDATE_RTOL
+            shares['losses'] = max(
+                abs(two['losses'][k] - v) / (1e-4 * max(1.0, abs(v)))
+                for k, v in losses.items())
+        else:
+            yardstick = dp_update_deviation(one['bfloat16'], one['float32'],
+                                             start)
+            bound = {part: DP_BF16_YARDSTICK_FACTOR * yardstick[part]
+                     for part in DP_UPDATE_PARTS}
+            shares = {part: deviation[part] / bound[part]
+                      for part in DP_UPDATE_PARTS}
+            stats = one['bfloat16']['batch_stats']
+            shares['batch_stats'] = max(
+                float((two['snap']['batch_stats'][k] - w).abs().max()) /
+                (5e-2 * float(w.abs().max())) for k, w in stats.items())
+            largest = max(abs(v) for v in losses.values())
+            shares['losses'] = max(abs(two['losses'][k] - v)
+                                   for k, v in losses.items()) / (
+                                       5e-2 * largest)
+            planted = torch.load(
+                os.path.join(base, 'train_bfloat16_planted.pt'),
+                weights_only=True)
+            planted_deviation = dp_update_deviation(
+                planted['snap'], one['bfloat16'], start)
+            del planted
+            planted_shares = {part: planted_deviation[part] / bound[part]
+                              for part in DP_UPDATE_PARTS}
+            planted_differ = dp_ranks_differ(base, 'bfloat16_planted')
+            print('data parallel, train, bfloat16: L2 deviation over the '
+                  'update of two ranks from one process {}, of bfloat16 '
+                  'from float32 (one process; the yardstick) {}; with the '
+                  'gradients left per rank: the ranks\' states differ in {}, '
+                  'deviation {} ({} of {} yardsticks)'.format(
+                      json.dumps(deviation), json.dumps(yardstick),
+                      planted_differ, json.dumps(planted_deviation),
+                      json.dumps({k: round(v, 4)
+                                  for k, v in planted_shares.items()}),
+                      DP_BF16_YARDSTICK_FACTOR))
+            report['bfloat16_gate'] = dict(
+                deviation=deviation, yardstick=yardstick,
+                planted_deviation=planted_deviation,
+                planted_shares=planted_shares, planted_differ=planted_differ)
+            if not planted_differ and max(planted_shares.values()) <= 1.0:
+                fail('data parallel bfloat16: the gate does not see the '
+                     'gradients left per rank')
+        report.setdefault('update_deviation', {})[dtype] = deviation
+        print('data parallel, train, {} ({} ranks over {}, {}): worst '
+              'deviation of two ranks from one process, as a share of its '
+              'tolerance: {}; ms/step one process {} , two ranks {} (both '
+              'ranks on one card measure correctness, not scaling)'.format(
+                  dtype, DP_RANKS, backend, card,
+                  json.dumps({k: round(v, 4) for k, v in shares.items()}),
+                  [round(x, 3) for x in ms], [round(x, 3)
+                                              for x in two['ms']]))
+        if max(shares.values()) > 1.0:
+            fail('data parallel {}: two ranks disagree with one process'
+                 .format(dtype))
+        report[dtype] = dict(shares=shares, ms_one=ms, ms_two=two['ms'])
+        del two
+    del one
+    torch.cuda.empty_cache()
+
+    ranks = []
+    for rank in range(DP_RANKS):
+        with open(os.path.join(base, 'eval_rank{}.json'.format(rank))) as f:
+            ranks.append(json.load(f))
+    config, ev = tiny_evaluator(eval_path, eval_config.checkpoint_dir,
+                                os.path.join(base, 'eval_one'), 'cuda')
+    emd_ops.emd_cost_fused.launches = 0
+    result = ev.run_latest_checkpoints([1])[0]
+    one_launches = emd_ops.emd_cost_fused.launches
+    valid = result['num_samples']
+    eval_batch = -(-EVAL_TINY_BATCH // DP_RANKS) * DP_RANKS
+    groups = -(-valid // eval_batch)
+    dirs = [os.path.join(base, 'eval_ranks', EVAL_TINY_NAME, 'predictions',
+                         'box_3d', 'val', '1'),
+            os.path.join(config.pred_dir, 'box_3d', 'val', '1')]
+    names, box_excess = compare_box_files(dirs, 'data parallel eval')
+    want = result['metrics_per_box'][C.METRIC_EMD]
+    got = np.load(os.path.join(base, 'eval_emd.npy'))
+    if got.shape != want.shape:
+        fail('data parallel eval: {} boxes vs {}'.format(got.shape,
+                                                          want.shape))
+    emd_rel = float((np.abs(got - want) /
+                     np.maximum(np.abs(want), 1e-30)).max())
+    launches = [r['launches'] for r in ranks]
+    print('data parallel, eval (tiny config, fixture val split, {} valid '
+          'samples): {} ranks at eval batch {} against one rank at {}: '
+          'box_3d worst error {:.3f} of its tolerance over {} files, '
+          'METRIC_EMD max rel err {:.3e} (bound 1e-4); emd_cost_fused '
+          'launches per rank {} in {} groups (one rank: {})'.format(
+              valid, DP_RANKS, ranks[0]['eval_batch'], EVAL_TINY_BATCH,
+              box_excess, len(names), emd_rel, launches, groups,
+              one_launches))
+    if (box_excess > 1.0 or emd_rel > 1e-4 or not np.isfinite(got).all()
+            or len(names) != valid
+            or any(r['eval_batch'] != eval_batch for r in ranks)
+            or launches != [groups] * DP_RANKS):
+        fail('data parallel eval: two ranks disagree with one rank')
+    report['eval'] = dict(valid=valid, launches_per_rank=launches,
+                          groups=groups, box_worst_of_tolerance=box_excess,
+                          emd_max_rel_err=emd_rel)
+    shutil.rmtree(base, ignore_errors=True)
+    return report
+
+
+# --------------------------------------------------------------------------
+# Accuracy gate, short
+# --------------------------------------------------------------------------
+
+def accuracy_gate_phase(card):
+    """The accuracy gate at 20 steps over one split, as a subprocess on the
+    card. It is not expected to pass at 20 steps; it must reach its
+    verdict: exit 0, or exit 1 with ``ACCURACY GATE FAILED: `` and the
+    report's failed checks; the report holds every key of the JAX gate's
+    report plus ``device``; both phases' AP curves come from the native
+    AP transcripts (three numbers per curve, a ``step 20`` block per phase
+    in each results file); every loss and metric is finite."""
+    top = monopsr_torch.top_dir()
+    out = os.path.join(top, 'build', 'chip_smoke', 'accuracy_short.json')
+    if os.path.exists(out):
+        os.remove(out)
+    t0 = time.time()
+    lines, _, rc = run_cli('accuracy_gate', [
+        '--steps', '20', '--splits', '1', '--out', out], 'step ',
+        exit_codes=(0, 1))
+    wall_s = time.time() - t0
+    with open(out) as f:
+        report = json.load(f)
+    missing = set(GATE_KEYS) - set(report)
+    if missing or 'device' not in report:
+        fail('accuracy gate: report lacks {}'.format(sorted(missing)))
+    failed = [k for k, v in report['checks'].items() if not v]
+    verdict = 'ACCURACY GATE FAILED: ' + ', '.join(failed)
+    if rc != (1 if failed else 0) or (failed and lines[-1] != verdict):
+        fail('accuracy gate: exit {} with last line {!r}, want {!r}'.format(
+            rc, lines[-1], verdict))
+    for phase in ('train', 'val'):
+        for key in ('ap_image', 'ap_bev', 'ap_3d', 'ap_image_low',
+                    'ap_bev_low', 'ap_3d_low'):
+            if len(report[phase][key]) != 3:
+                fail('accuracy gate: {} {} not read'.format(phase, key))
+        values = (list(report[phase]['losses'].values()) +
+                  list(report[phase]['metrics'].values()) +
+                  list(report[phase]['metrics_abs'].values()))
+        if not values or not all(np.isfinite(v) for v in values):
+            fail('accuracy gate: {} losses or metrics not finite'.format(
+                phase))
+    pred_dir = os.path.join(monopsr_torch.data_dir(), 'outputs',
+                            'accuracy_gate', 'predictions')
+    for path in native_eval.results_paths(pred_dir, 'accuracy_gate', 0.1):
+        with open(path) as f:
+            if f.read().count('step 20\n') != 2:
+                fail('accuracy gate: {} lacks two step 20 blocks'.format(
+                    path))
+    numbers = cli_numbers(lines)
+    eval_s = [n[2] for n in numbers['evaluated']]
+    native_s = [n[1] for n in numbers['native_s']]
+    k1 = sum(n[0] for n in numbers['launches'])
+    print('accuracy gate, 20 steps, 1 split ({}): {} (exit {}); train {} '
+          's, eval {} s, native AP {} s, wall {:.1f} s; train AP image/BEV/'
+          '3D moderate {}/{}/{}, mean |cen_z err| {:.3f} m; emd_cost_fused '
+          'launches {}'.format(
+              card, 'PASSED' if not failed else verdict, rc,
+              report['train_seconds'], eval_s, native_s, wall_s,
+              report['train']['ap_image'][1], report['train']['ap_bev'][1],
+              report['train']['ap_3d'][1],
+              report['train']['metrics_abs']['metric_cen_z_err'], k1))
+    return dict(exit=rc, failed=failed, train_s=report['train_seconds'],
+                eval_s=eval_s, native_s=native_s, wall_s=wall_s,
+                k1_launches=k1)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -1820,6 +2273,16 @@ def main():
         shutil.rmtree(loop_dir, ignore_errors=True)
     prod_ref = production_reference(args.seed)
     prep_report = data_prep_phase(card)
+    dp_report = data_parallel_phase(args.seed, card)
+    gate_dirs = [os.path.join(monopsr_torch.data_dir(), 'outputs', name)
+                 for name in ('accuracy_gate', '_accuracy_gate_cfg')]
+    for path in gate_dirs:
+        shutil.rmtree(path, ignore_errors=True)
+    try:
+        gate_report = accuracy_gate_phase(card)
+    finally:
+        for path in gate_dirs:
+            shutil.rmtree(path, ignore_errors=True)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -1836,6 +2299,9 @@ def main():
         'launches': report['val']['launches'],
         'launches_eval_reference': eval_tiny['launches'],
         'launches_eval_cli': eval_report['k1_launches'],
+        'launches_data_parallel_per_rank':
+            dp_report['eval']['launches_per_rank'],
+        'launches_accuracy_gate': gate_report['k1_launches'],
         'max_abs_err': prod['max_abs_err'],
         'max_rel_err': prod['max_rel_err'],
         'main_path_clouds_max_rel_err': report['clouds_max_rel_err'],
@@ -1857,6 +2323,8 @@ def main():
         'replaces': 'monopsr_tpu/ops/emd.py:425',
         'launches': train_report['emd loss']['launches'],
         'launches_eval_cli': 0,
+        'launches_data_parallel_per_rank': [0] * DP_RANKS,
+        'launches_accuracy_gate': 0,
         'max_abs_err': prod2['max_abs_err'],
         'max_rel_err': prod2['max_rel_err'],
         'accumulators_max_rel_err': prod2['acc_max_rel_err'],
@@ -1889,6 +2357,8 @@ def main():
     print('eval CLIs: ' + json.dumps(eval_report))
     print('production reference: ' + json.dumps(prod_ref))
     print('data preparation: ' + json.dumps(prep_report))
+    print('data parallel: ' + json.dumps(dp_report))
+    print('accuracy gate, short: ' + json.dumps(gate_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -260,6 +260,61 @@ def load_yaml(path):
         return parse_yaml(f.read(), path)
 
 
+def _dump_scalar(value, in_list):
+    if value is None:
+        return 'null' if in_list else '!!null'
+    if isinstance(value, bool):
+        return 'True' if value else 'False'
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        text = repr(value)
+        if not _FLOAT.match(text):     # '1e-05' -> '1.0e-05'; 3 -> '3.0'
+            mantissa, e, exponent = text.partition('e')
+            if '.' not in mantissa:
+                mantissa += '.0'
+            if e and exponent[0] not in '+-':
+                exponent = '+' + exponent
+            text = mantissa + e + exponent
+        if not _FLOAT.match(text):     # inf, nan
+            raise YamlSubsetError('no YAML subset form for ' + repr(value))
+        return text
+    if isinstance(value, str):
+        if '\n' in value or '\r' in value:
+            raise YamlSubsetError('multi-line string: ' + repr(value))
+        return "'{}'".format(value.replace("'", "''"))
+    if isinstance(value, (list, tuple)):
+        return '[{}]'.format(', '.join(_dump_scalar(v, True) for v in value))
+    raise YamlSubsetError('no YAML subset form for {!r}'.format(value))
+
+
+def _dump_block(mapping, indent, out):
+    for key, value in mapping.items():
+        if not isinstance(key, str) or not _KEY.match(key):
+            raise YamlSubsetError('unsupported key: {!r}'.format(key))
+        if isinstance(value, dict):
+            if not value:
+                raise YamlSubsetError('empty mapping under ' + key)
+            out.append('{}{}:'.format(' ' * indent, key))
+            _dump_block(value, indent + 2, out)
+        else:
+            out.append('{}{}: {}'.format(' ' * indent, key,
+                                         _dump_scalar(value, False)))
+
+
+def dump_yaml(obj, path):
+    """Writes a nested dict in the subset ``parse_yaml`` reads (block
+    mappings, single-quoted strings, ``!!null``, flow lists), so that
+    ``load_yaml(path)`` returns an equal dict; the writer that takes
+    the place of PyYAML's ``safe_dump``. Raises YamlSubsetError for a
+    value the subset cannot hold (a mapping inside a list, an empty
+    mapping, a multi-line string, inf or nan)."""
+    out = []
+    _dump_block(obj, 0, out)
+    with open(path, 'w') as f:
+        f.write('\n'.join(out) + '\n')
+
+
 def parse_yaml_config(yaml_path, output_base_dir=None):
     """Parses a YAML config file into a ConfigObj and derives output paths.
 

@@ -209,20 +209,22 @@ class KittiDataset:
 
     # -- sample assembly ------------------------------------------------------
 
-    def _sample_rng(self, sample_name):
+    def _sample_rng(self, sample_name, epoch=None):
         """RNG for one sample's draws (oversample, augmentation).
 
         Seeded datasets derive the state from (seed, sample name,
         epoch), so the draws are identical regardless of thread
         interleaving across loader/producer pools; unseeded datasets
         share one stream (reference behavior: global np.random).
+        ``epoch`` defaults to the current one.
         """
         if self._seed is None:
             return self._rng
         mix = zlib.crc32(sample_name.encode('utf8'))
         return np.random.RandomState(
             (self._seed * 1000003 + mix
-             + 16777619 * self.epochs_completed) % (2 ** 32))
+             + 16777619 * (self.epochs_completed if epoch is None
+                           else epoch)) % (2 ** 32))
 
     def _oversample_indices(self, num_objs, rng):
         if num_objs >= self.num_boxes:
@@ -248,246 +250,275 @@ class KittiDataset:
 
         Samples with no valid objects yield None (reference contract).
         """
-        sample_dicts = []
-        for sample_idx in indices:
-            sample_name = self.sample_list[sample_idx].name
-            rng = self._sample_rng(sample_name)
+        return [self._sample_dict(self.sample_list[i].name,
+                                  self._sample_rng(self.sample_list[i].name))
+                for i in indices]
 
-            image_path = self.get_rgb_image_path(sample_name)
-            try:
-                rgb_image = image_io.read_png(image_path)
-            except FileNotFoundError:
-                raise FileNotFoundError(
-                    'Image not found: ' + image_path) from None
-            image_shape = rgb_image.shape[0:2]
-            image_input = rgb_image
+    def load_slots(self, slots):
+        """Sample dicts (None for empty samples) of ``(sample name,
+        epoch)`` slots from ``next_batch_slots``: each sample's draws
+        come from its name and that epoch, as ``next_batch`` draws them
+        (seeded datasets)."""
+        return [self._sample_dict(name, self._sample_rng(name, epoch))
+                for name, epoch in slots]
 
-            frame_calib = calib_utils.get_frame_calib(
-                self.calib_dir, sample_name)
-            cam_p = frame_calib.p2
+    def has_objects(self, sample_name):
+        """Whether a sample yields a dict (``_sample_dict`` gives None
+        when no object is left), read from its label files alone: the
+        labels ``_sample_dict`` takes (the KITTI ones, merged with the
+        MSCNN detections in val mode when it uses them; the MSCNN ones in
+        test mode) keep an object through the object filter (class,
+        difficulty, box height, occlusion, truncation, depth; none of
+        them changes under the flip augmentation)."""
+        def kept(labels):
+            return len(labels) > 0 and len(
+                obj_utils.apply_obj_filter(labels, self.obj_filter)[0]) > 0
 
-            instance_image = None
-            depth_map = None
+        if self.train_val_test == 'test':
+            return kept(obj_utils.read_labels(self.mscnn_label_dir,
+                                              sample_name))
+        kitti_obj_labels = obj_utils.read_labels(self.kitti_label_dir,
+                                                 sample_name)
+        if not (self.use_mscnn_detections and self.train_val_test == 'val'):
+            return kept(kitti_obj_labels)
+        merged = obj_utils.merge_kitti_and_mscnn_obj_labels(
+            kitti_obj_labels,
+            obj_utils.read_labels(self.mscnn_label_dir, sample_name),
+            min_iou=self.mscnn_merge_min_iou,
+            default_score_type='distance')
+        return kept(merged) and kept(kitti_obj_labels)
 
-            # Horizontal-flip augmentation (train only, opt-in via
-            # aug_config.use_flip_aug): flips the image, calibration,
-            # labels (2D box + 3D pose + alpha), depth map, and instance
-            # image as one consistent mirrored scene. Drawn before any
-            # other per-sample randomness.
-            flip = (self.train_val_test == 'train' and
-                    bool(self.aug_config.get('use_flip_aug', False)) and
-                    rng.rand() < 0.5)
+    def _sample_dict(self, sample_name, rng):
+        """One sample's dict, or None when no valid object is left."""
+        image_path = self.get_rgb_image_path(sample_name)
+        try:
+            rgb_image = image_io.read_png(image_path)
+        except FileNotFoundError:
+            raise FileNotFoundError(
+                'Image not found: ' + image_path) from None
+        image_shape = rgb_image.shape[0:2]
+        image_input = rgb_image
+
+        frame_calib = calib_utils.get_frame_calib(
+            self.calib_dir, sample_name)
+        cam_p = frame_calib.p2
+
+        instance_image = None
+        depth_map = None
+
+        # Horizontal-flip augmentation (train only, opt-in via
+        # aug_config.use_flip_aug): flips the image, calibration,
+        # labels (2D box + 3D pose + alpha), depth map, and instance
+        # image as one consistent mirrored scene. Drawn before any
+        # other per-sample randomness.
+        flip = (self.train_val_test == 'train' and
+                bool(self.aug_config.get('use_flip_aug', False)) and
+                rng.rand() < 0.5)
+        if flip:
+            image_input = rgb_image = kitti_aug.flip_image(rgb_image)
+            cam_p = kitti_aug.flip_stereo_calib_p2(cam_p, image_shape)
+
+        if self.train_val_test in ('train', 'val'):
+            kitti_obj_labels = obj_utils.read_labels(
+                self.kitti_label_dir, sample_name)
             if flip:
-                image_input = rgb_image = kitti_aug.flip_image(rgb_image)
-                cam_p = kitti_aug.flip_stereo_calib_p2(cam_p, image_shape)
+                kitti_obj_labels = kitti_aug.flip_obj_labels(
+                    kitti_obj_labels, image_shape)
 
-            if self.train_val_test in ('train', 'val'):
-                kitti_obj_labels = obj_utils.read_labels(
-                    self.kitti_label_dir, sample_name)
-                if flip:
-                    kitti_obj_labels = kitti_aug.flip_obj_labels(
-                        kitti_obj_labels, image_shape)
-
-                if self.use_mscnn_detections and self.train_val_test == 'val':
-                    mscnn_obj_labels = obj_utils.read_labels(
-                        self.mscnn_label_dir, sample_name)
-                    obj_labels = obj_utils.merge_kitti_and_mscnn_obj_labels(
-                        kitti_obj_labels, mscnn_obj_labels,
-                        min_iou=self.mscnn_merge_min_iou,
-                        default_score_type='distance')
-                else:
-                    obj_labels = kitti_obj_labels
-
-                num_all_objs = len(obj_labels)
-                obj_labels, obj_mask = obj_utils.apply_obj_filter(
-                    obj_labels, self.obj_filter)
-                num_objs = len(obj_labels)
-                if num_objs < 1:
-                    sample_dicts.append(None)
-                    continue
-
-                if self.use_mscnn_detections:
-                    kitti_obj_labels, _ = obj_utils.apply_obj_filter(
-                        kitti_obj_labels, self.obj_filter)
-                    num_kitti_objs = len(kitti_obj_labels)
-                    if num_kitti_objs < 1:
-                        sample_dicts.append(None)
-                        continue
-
-                # Original label index per surviving box (the instance
-                # image pixels hold these indices)
-                orig_indices = np.nonzero(obj_mask)[0]
-
-                instance_image = instance_utils.get_instance_image(
-                    sample_name, self.instance_dir)
-                if flip:
-                    instance_image = np.fliplr(instance_image)
-
-                if self.oversample:
-                    osi = self._oversample_indices(num_objs, rng)
-                    obj_labels = obj_labels[osi]
-                    orig_indices = orig_indices[osi]
-                    num_objs = min(num_objs, self.num_boxes)
-
-                # Augmentation (train only)
-                if self.train_val_test == 'train':
-                    if self.aug_config.use_image_aug:
-                        image_input = kitti_aug.apply_image_noise(
-                            rgb_image, rng=rng)
-
-                    box_jitter_type = self.aug_config.box_jitter_type
-                    if box_jitter_type is None:
-                        pass
-                    elif box_jitter_type == 'oversample':
-                        if not self.oversample:
-                            raise ValueError(
-                                'Must oversample to use jitter type '
-                                + box_jitter_type)
-                        obj_labels[num_objs:] = kitti_aug.jitter_obj_boxes_2d(
-                            obj_labels[num_objs:], 0.7, image_shape,
-                            rng=rng)
-                    elif box_jitter_type == 'oversample_gt':
-                        if not self.oversample:
-                            raise ValueError(
-                                'Must oversample to use jitter type '
-                                + box_jitter_type)
-                        n_extra = self.num_boxes - num_objs
-                        gt_pick = rng.choice(
-                            num_kitti_objs, n_extra, replace=True)
-                        obj_labels[num_objs:] = kitti_aug.jitter_obj_boxes_2d(
-                            kitti_obj_labels[gt_pick], 0.7, image_shape,
-                            rng=rng)
-                        # Jittered GT boxes keep their own instance channels
-                        kitti_orig = np.nonzero(obj_mask)[0]
-                        if len(kitti_orig) >= num_kitti_objs:
-                            orig_indices[num_objs:] = kitti_orig[gt_pick]
-                    elif box_jitter_type == 'all':
-                        obj_labels = kitti_aug.jitter_obj_boxes_2d(
-                            obj_labels, 0.7, image_shape, rng=rng)
-                    else:
-                        raise ValueError(
-                            'Invalid box_jitter_type: ' + str(box_jitter_type))
-
-                label_boxes_2d = obj_utils.boxes_2d_from_obj_labels(
-                    obj_labels)
-                label_boxes_3d = obj_utils.boxes_3d_from_obj_labels(
-                    obj_labels)
-                label_alphas = np.asarray(
-                    [o.alpha for o in obj_labels], np.float32)
-
-                alphas = np.asarray([o.alpha for o in obj_labels])
-                bins, regs, valid_bins = (
-                    orientation.np_orientation_to_angle_bin(
-                        alphas, self.num_alpha_bins, self.alpha_bin_overlap))
-
-                label_viewing_angles_2d = obj_utils.get_viewing_angles_box_2d(
-                    label_boxes_2d, cam_p).astype(np.float32)
-                label_viewing_angles_3d = obj_utils.get_viewing_angles_box_3d(
-                    label_boxes_3d, cam_p).astype(np.float32)
-
-                label_class_indices = np.asarray(
-                    [obj_utils.class_str_to_index(o.type, self.classes)
-                     for o in obj_labels], np.int32)[:, None]
-                label_class_strs = [o.type for o in obj_labels]
-
-                prop_cen_z_offsets = class_stats.prop_cen_z_offset_array(
-                    label_class_strs)
-                cen_y_offsets = np.asarray(
-                    [class_stats.cen_y_trend_offset(
-                        c, self.trend_data, self.centroid_type)
-                     for c in label_class_strs], np.float32)
-
-                depth_map = obj_utils.get_depth_map(
-                    sample_name, self.depth_dir)
-                if flip:
-                    depth_map = np.fliplr(depth_map)
-
-                label_scores = np.asarray(
-                    [o.score for o in obj_labels], np.float32)
-                lwh_means = class_stats.mean_lwh_array(label_class_strs)
-
-            elif self.train_val_test == 'test':
-                obj_labels = obj_utils.read_labels(
+            if self.use_mscnn_detections and self.train_val_test == 'val':
+                mscnn_obj_labels = obj_utils.read_labels(
                     self.mscnn_label_dir, sample_name)
-                if len(obj_labels) < 1:
-                    sample_dicts.append(None)
-                    continue
+                obj_labels = obj_utils.merge_kitti_and_mscnn_obj_labels(
+                    kitti_obj_labels, mscnn_obj_labels,
+                    min_iou=self.mscnn_merge_min_iou,
+                    default_score_type='distance')
+            else:
+                obj_labels = kitti_obj_labels
 
-                obj_labels, _ = obj_utils.apply_obj_filter(
-                    obj_labels, self.obj_filter)
-                num_objs = len(obj_labels)
-                if num_objs < 1:
-                    sample_dicts.append(None)
-                    continue
+            num_all_objs = len(obj_labels)
+            obj_labels, obj_mask = obj_utils.apply_obj_filter(
+                obj_labels, self.obj_filter)
+            num_objs = len(obj_labels)
+            if num_objs < 1:
+                return None
 
+            if self.use_mscnn_detections:
+                kitti_obj_labels, _ = obj_utils.apply_obj_filter(
+                    kitti_obj_labels, self.obj_filter)
+                num_kitti_objs = len(kitti_obj_labels)
+                if num_kitti_objs < 1:
+                    return None
+
+            # Original label index per surviving box (the instance
+            # image pixels hold these indices)
+            orig_indices = np.nonzero(obj_mask)[0]
+
+            instance_image = instance_utils.get_instance_image(
+                sample_name, self.instance_dir)
+            if flip:
+                instance_image = np.fliplr(instance_image)
+
+            if self.oversample:
                 osi = self._oversample_indices(num_objs, rng)
                 obj_labels = obj_labels[osi]
+                orig_indices = orig_indices[osi]
                 num_objs = min(num_objs, self.num_boxes)
 
-                label_boxes_2d = obj_utils.boxes_2d_from_obj_labels(
-                    obj_labels)
-                label_scores = np.asarray(
-                    [o.score for o in obj_labels], np.float32)
-                label_viewing_angles_2d = obj_utils.get_viewing_angles_box_2d(
-                    label_boxes_2d, cam_p).astype(np.float32)
-                label_class_indices = np.asarray(
-                    [obj_utils.class_str_to_index(o.type, self.classes)
-                     for o in obj_labels], np.int32)[:, None]
-                label_class_strs = [o.type for o in obj_labels]
-                lwh_means = class_stats.mean_lwh_array(label_class_strs)
-                prop_cen_z_offsets = class_stats.prop_cen_z_offset_array(
-                    label_class_strs)
-                cen_y_offsets = np.asarray(
-                    [class_stats.cen_y_trend_offset(
-                        c, self.trend_data, self.centroid_type)
-                     for c in label_class_strs], np.float32)
-            else:
-                raise ValueError('Invalid run mode: ' + self.train_val_test)
+            # Augmentation (train only)
+            if self.train_val_test == 'train':
+                if self.aug_config.use_image_aug:
+                    image_input = kitti_aug.apply_image_noise(
+                        rgb_image, rng=rng)
 
-            label_boxes_2d_norm = label_boxes_2d / np.tile(image_shape, 2)
+                box_jitter_type = self.aug_config.box_jitter_type
+                if box_jitter_type is None:
+                    pass
+                elif box_jitter_type == 'oversample':
+                    if not self.oversample:
+                        raise ValueError(
+                            'Must oversample to use jitter type '
+                            + box_jitter_type)
+                    obj_labels[num_objs:] = kitti_aug.jitter_obj_boxes_2d(
+                        obj_labels[num_objs:], 0.7, image_shape,
+                        rng=rng)
+                elif box_jitter_type == 'oversample_gt':
+                    if not self.oversample:
+                        raise ValueError(
+                            'Must oversample to use jitter type '
+                            + box_jitter_type)
+                    n_extra = self.num_boxes - num_objs
+                    gt_pick = rng.choice(
+                        num_kitti_objs, n_extra, replace=True)
+                    obj_labels[num_objs:] = kitti_aug.jitter_obj_boxes_2d(
+                        kitti_obj_labels[gt_pick], 0.7, image_shape,
+                        rng=rng)
+                    # Jittered GT boxes keep their own instance channels
+                    kitti_orig = np.nonzero(obj_mask)[0]
+                    if len(kitti_orig) >= num_kitti_objs:
+                        orig_indices[num_objs:] = kitti_orig[gt_pick]
+                elif box_jitter_type == 'all':
+                    obj_labels = kitti_aug.jitter_obj_boxes_2d(
+                        obj_labels, 0.7, image_shape, rng=rng)
+                else:
+                    raise ValueError(
+                        'Invalid box_jitter_type: ' + str(box_jitter_type))
 
-            sample_dict = {
-                constants.SAMPLE_NUM_OBJS: num_objs,
-                constants.SAMPLE_IMAGE_INPUT: image_input,
-                SAMPLE_IMAGE_SHAPE: np.asarray(image_shape, np.int32),
-                constants.SAMPLE_CAM_P: np.asarray(cam_p, np.float32),
-                constants.SAMPLE_NAME: sample_name,
-                constants.SAMPLE_LABEL_BOXES_2D_NORM:
-                    label_boxes_2d_norm.astype(np.float32),
-                constants.SAMPLE_LABEL_BOXES_2D: label_boxes_2d,
-                constants.SAMPLE_LABEL_SCORES: label_scores,
-                constants.SAMPLE_LABEL_CLASS_STRS:
-                    np.expand_dims(label_class_strs, 1),
-                constants.SAMPLE_LABEL_CLASS_INDICES: label_class_indices,
-                constants.SAMPLE_MEAN_LWH: lwh_means,
-                constants.SAMPLE_PROP_CEN_Z_OFFSET: prop_cen_z_offsets,
-                SAMPLE_CEN_Y_OFFSETS: cen_y_offsets,
-                constants.SAMPLE_VIEWING_ANGLES_2D: label_viewing_angles_2d,
-            }
+            label_boxes_2d = obj_utils.boxes_2d_from_obj_labels(
+                obj_labels)
+            label_boxes_3d = obj_utils.boxes_3d_from_obj_labels(
+                obj_labels)
+            label_alphas = np.asarray(
+                [o.alpha for o in obj_labels], np.float32)
 
-            if self.train_val_test in ('train', 'val'):
-                sample_dict.update({
-                    constants.SAMPLE_LABEL_BOXES_3D: label_boxes_3d,
-                    constants.SAMPLE_ALPHAS: label_alphas,
-                    constants.SAMPLE_ALPHA_BINS:
-                        np.asarray(bins, np.int32),
-                    constants.SAMPLE_ALPHA_REGS:
-                        np.asarray(regs, np.float32),
-                    constants.SAMPLE_ALPHA_VALID_BINS:
-                        np.asarray(valid_bins, np.float32),
-                    constants.SAMPLE_VIEWING_ANGLES_3D:
-                        label_viewing_angles_3d,
-                    SAMPLE_INSTANCE_IMAGE: self._pad_map(
-                        instance_image.astype(np.int32), fill=255),
-                    SAMPLE_INSTANCE_INDICES:
-                        orig_indices.astype(np.int32),
-                    constants.SAMPLE_DEPTH_MAP: self._pad_map(
-                        depth_map.astype(np.float32)),
-                })
+            alphas = np.asarray([o.alpha for o in obj_labels])
+            bins, regs, valid_bins = (
+                orientation.np_orientation_to_angle_bin(
+                    alphas, self.num_alpha_bins, self.alpha_bin_overlap))
 
-            sample_dicts.append(sample_dict)
+            label_viewing_angles_2d = obj_utils.get_viewing_angles_box_2d(
+                label_boxes_2d, cam_p).astype(np.float32)
+            label_viewing_angles_3d = obj_utils.get_viewing_angles_box_3d(
+                label_boxes_3d, cam_p).astype(np.float32)
 
-        return sample_dicts
+            label_class_indices = np.asarray(
+                [obj_utils.class_str_to_index(o.type, self.classes)
+                 for o in obj_labels], np.int32)[:, None]
+            label_class_strs = [o.type for o in obj_labels]
+
+            prop_cen_z_offsets = class_stats.prop_cen_z_offset_array(
+                label_class_strs)
+            cen_y_offsets = np.asarray(
+                [class_stats.cen_y_trend_offset(
+                    c, self.trend_data, self.centroid_type)
+                 for c in label_class_strs], np.float32)
+
+            depth_map = obj_utils.get_depth_map(
+                sample_name, self.depth_dir)
+            if flip:
+                depth_map = np.fliplr(depth_map)
+
+            label_scores = np.asarray(
+                [o.score for o in obj_labels], np.float32)
+            lwh_means = class_stats.mean_lwh_array(label_class_strs)
+
+        elif self.train_val_test == 'test':
+            obj_labels = obj_utils.read_labels(
+                self.mscnn_label_dir, sample_name)
+            if len(obj_labels) < 1:
+                return None
+
+            obj_labels, _ = obj_utils.apply_obj_filter(
+                obj_labels, self.obj_filter)
+            num_objs = len(obj_labels)
+            if num_objs < 1:
+                return None
+
+            osi = self._oversample_indices(num_objs, rng)
+            obj_labels = obj_labels[osi]
+            num_objs = min(num_objs, self.num_boxes)
+
+            label_boxes_2d = obj_utils.boxes_2d_from_obj_labels(
+                obj_labels)
+            label_scores = np.asarray(
+                [o.score for o in obj_labels], np.float32)
+            label_viewing_angles_2d = obj_utils.get_viewing_angles_box_2d(
+                label_boxes_2d, cam_p).astype(np.float32)
+            label_class_indices = np.asarray(
+                [obj_utils.class_str_to_index(o.type, self.classes)
+                 for o in obj_labels], np.int32)[:, None]
+            label_class_strs = [o.type for o in obj_labels]
+            lwh_means = class_stats.mean_lwh_array(label_class_strs)
+            prop_cen_z_offsets = class_stats.prop_cen_z_offset_array(
+                label_class_strs)
+            cen_y_offsets = np.asarray(
+                [class_stats.cen_y_trend_offset(
+                    c, self.trend_data, self.centroid_type)
+                 for c in label_class_strs], np.float32)
+        else:
+            raise ValueError('Invalid run mode: ' + self.train_val_test)
+
+        label_boxes_2d_norm = label_boxes_2d / np.tile(image_shape, 2)
+
+        sample_dict = {
+            constants.SAMPLE_NUM_OBJS: num_objs,
+            constants.SAMPLE_IMAGE_INPUT: image_input,
+            SAMPLE_IMAGE_SHAPE: np.asarray(image_shape, np.int32),
+            constants.SAMPLE_CAM_P: np.asarray(cam_p, np.float32),
+            constants.SAMPLE_NAME: sample_name,
+            constants.SAMPLE_LABEL_BOXES_2D_NORM:
+                label_boxes_2d_norm.astype(np.float32),
+            constants.SAMPLE_LABEL_BOXES_2D: label_boxes_2d,
+            constants.SAMPLE_LABEL_SCORES: label_scores,
+            constants.SAMPLE_LABEL_CLASS_STRS:
+                np.expand_dims(label_class_strs, 1),
+            constants.SAMPLE_LABEL_CLASS_INDICES: label_class_indices,
+            constants.SAMPLE_MEAN_LWH: lwh_means,
+            constants.SAMPLE_PROP_CEN_Z_OFFSET: prop_cen_z_offsets,
+            SAMPLE_CEN_Y_OFFSETS: cen_y_offsets,
+            constants.SAMPLE_VIEWING_ANGLES_2D: label_viewing_angles_2d,
+        }
+
+        if self.train_val_test in ('train', 'val'):
+            sample_dict.update({
+                constants.SAMPLE_LABEL_BOXES_3D: label_boxes_3d,
+                constants.SAMPLE_ALPHAS: label_alphas,
+                constants.SAMPLE_ALPHA_BINS:
+                    np.asarray(bins, np.int32),
+                constants.SAMPLE_ALPHA_REGS:
+                    np.asarray(regs, np.float32),
+                constants.SAMPLE_ALPHA_VALID_BINS:
+                    np.asarray(valid_bins, np.float32),
+                constants.SAMPLE_VIEWING_ANGLES_3D:
+                    label_viewing_angles_3d,
+                SAMPLE_INSTANCE_IMAGE: self._pad_map(
+                    instance_image.astype(np.int32), fill=255),
+                SAMPLE_INSTANCE_INDICES:
+                    orig_indices.astype(np.int32),
+                constants.SAMPLE_DEPTH_MAP: self._pad_map(
+                    depth_map.astype(np.float32)),
+            })
+
+        return sample_dict
 
     # -- epoch iteration -------------------------------------------------------
 
@@ -496,9 +527,12 @@ class KittiDataset:
         self._rng.shuffle(perm)
         self.sample_list = self.sample_list[perm]
 
-    def next_batch(self, batch_size, shuffle):
-        """Returns the next batch of sample dicts (None for empty samples)."""
-        samples_in_batch = []
+    def next_batch_slots(self, batch_size, shuffle):
+        """Advances the epoch pointer by ``batch_size`` samples, as
+        ``next_batch`` does, and returns the batch's ``(sample name,
+        epoch)`` slots without reading them. The epoch is the one the
+        samples' draws come from: a batch that ends an epoch is drawn
+        with the next one's."""
         start = self._index_in_epoch
 
         if self.epochs_completed == 0 and start == 0 and shuffle:
@@ -506,19 +540,19 @@ class KittiDataset:
 
         if start + batch_size >= self.num_samples:
             self.epochs_completed += 1
-            rest = self.num_samples - start
-            samples_in_batch.extend(
-                self.get_sample_dict(np.arange(start, self.num_samples)))
+            names = [s.name for s in
+                     self.sample_list[np.arange(start, self.num_samples)]]
             if shuffle:
                 self._shuffle_samples()
-            start = 0
-            self._index_in_epoch = batch_size - rest
-            samples_in_batch.extend(
-                self.get_sample_dict(np.arange(0, self._index_in_epoch)))
+            self._index_in_epoch = batch_size - (self.num_samples - start)
+            names += [s.name for s in
+                      self.sample_list[np.arange(0, self._index_in_epoch)]]
         else:
             self._index_in_epoch += batch_size
-            samples_in_batch.extend(
-                self.get_sample_dict(
-                    np.arange(start, self._index_in_epoch)))
+            names = [s.name for s in
+                     self.sample_list[np.arange(start, self._index_in_epoch)]]
+        return [(name, self.epochs_completed) for name in names]
 
-        return samples_in_batch
+    def next_batch(self, batch_size, shuffle):
+        """Returns the next batch of sample dicts (None for empty samples)."""
+        return self.load_slots(self.next_batch_slots(batch_size, shuffle))

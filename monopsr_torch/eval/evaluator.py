@@ -21,9 +21,19 @@ read for the weights only; the device-to-host pipeline copies tensor by
 tensor (``eval/pipeline.py``), not as one packed buffer; the native
 evaluator is built and started by ``eval/native_eval.py`` with
 ``subprocess.Popen``, not by ``make`` and a forked process. As in
-JAX, only the polling loop writes the ledger, and ``eval_data_parallel``
-(or ``data_parallel``) is clamped to the visible devices; more than one
-left raises NotImplementedError (ROADMAP M16).
+JAX, only the polling loop writes the ledger.
+
+``eval_data_parallel`` (or ``data_parallel``) is clamped to the visible
+devices, as JAX clamps its mesh, and counts processes: the evaluator
+runs in each rank of a process group that ``parallel.data_parallel
+.launch`` starts (the evaluation and inference CLIs start it when the
+clamped count is above 1). ``eval_batch`` is rounded up to a multiple
+of the ranks. The dispatch groups are formed from the samples' label
+files (``KittiDataset.has_objects``), as one rank forms them; each rank
+assembles only its rows of each group and runs the eval step, K1
+included, on them. Rank 0 gathers the group's outputs and the host
+fields of its samples, and alone writes the predictions, KITTI files,
+metrics, logs and ledger and runs the native AP evaluator.
 """
 
 import json
@@ -39,6 +49,7 @@ from monopsr_torch.eval import kitti_writers, native_eval, pipeline
 from monopsr_torch.eval import predictions
 from monopsr_torch.models import monopsr
 from monopsr_torch.ops import emd as emd_ops
+from monopsr_torch.parallel import data_parallel as dp_lib
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer as trainer_lib
 from monopsr_torch.train.train_state import TrainState
@@ -62,6 +73,52 @@ def batch_to_device(batch, device):
         if torch.is_tensor(value):
             out[key] = value.to(device, non_blocking=True)
     return out
+
+
+def requested_eval_ranks(train_config):
+    """A config's ``eval_data_parallel``, else its ``data_parallel``."""
+    return train_config.get('eval_data_parallel',
+                            train_config.get('data_parallel', 1))
+
+
+def _gather_outputs(out):
+    """An eval step's (outputs, losses, metrics) dicts with every rank's
+    rows, in rank order (``data_parallel.gather_rows``); each dict keeps
+    its keys' order."""
+    keys = [list(part) for part in out]
+    flat = dp_lib.gather_rows([part[k] for part, ks in zip(out, keys)
+                               for k in ks])
+    gathered, i = [], 0
+    for ks in keys:
+        gathered.append(dict(zip(ks, flat[i:i + len(ks)])))
+        i += len(ks)
+    return tuple(gathered)
+
+
+# What rank 0 reads of a sample another rank assembled: what formats its
+# predictions (``predictions.format_predictions``) and sizes its group's
+# slot bucket
+_HOST_KEYS = (C.SAMPLE_NAME, C.SAMPLE_NUM_OBJS, C.SAMPLE_CAM_P,
+              C.SAMPLE_LABEL_SCORES, C.SAMPLE_LABEL_BOXES_2D,
+              C.SAMPLE_LABEL_BOXES_3D, C.SAMPLE_LABEL_CLASS_INDICES)
+
+
+def _gather_host_samples(rows):
+    """A group's host samples from every rank's ``rows``, in rank order;
+    ``rows`` themselves without a process group. The samples that cross
+    ranks carry ``_HOST_KEYS`` and, of the image, only its shape (a
+    zero-strided stand-in: the predictions read its shape alone)."""
+    if dp_lib.world_size() == 1:
+        return list(rows)
+    sent = [dict({k: s[k] for k in _HOST_KEYS if k in s},
+                 image_shape=s[C.SAMPLE_IMAGE_INPUT].shape) for s in rows]
+    samples = []
+    for fields in dp_lib.all_gather_objects(sent):
+        shape = fields.pop('image_shape')
+        fields[C.SAMPLE_IMAGE_INPUT] = np.broadcast_to(
+            np.zeros((), np.uint8), shape)
+        samples.append(fields)
+    return samples
 
 
 def make_eval_step(net, cfg, loss_config, eval_mode, device=None):
@@ -124,7 +181,14 @@ class Evaluator:
             has them.
         device: CUDA unless 'cpu' is asked for; raises when CUDA is asked
             for and absent.
+
+    Raises ValueError when ``eval_data_parallel`` (or ``data_parallel``),
+    clamped to the visible cards, is above 1 and this process is not one
+    of the ranks ``parallel.data_parallel.launch`` starts. Inside a
+    process group the group's size is the number of ranks.
     """
+
+    _tb = None     # TB event writer, opened at its first scalars
 
     def __init__(self, config, dataset, eval_mode,
                  skip_evaluated_checkpoints=True,
@@ -145,17 +209,13 @@ class Evaluator:
         self.use_ema_weights = use_ema_weights
 
         train_config = config.train_config
-        # Clamped to the devices present, as the JAX evaluator's mesh is;
-        # more than one left is M16.
-        dp = min(int(train_config.get(
-            'eval_data_parallel', train_config.get('data_parallel', 1)) or 1),
-            device_lib.visible_device_count(self.device))
-        if dp > 1:
-            raise NotImplementedError(
-                'eval_data_parallel {} over the visible devices is not '
-                'ported yet (ROADMAP M16)'.format(dp))
-        # Samples per eval dispatch (tails padded)
-        self.eval_batch = max(1, int(train_config.get('eval_batch', 4) or 4))
+        dp_lib.require_ranks(requested_eval_ranks(train_config),
+                             self.device, 'eval_data_parallel')
+        # Samples per eval dispatch (tails padded), rounded up to fill
+        # every rank
+        ranks = dp_lib.world_size()
+        eval_batch = max(1, int(train_config.get('eval_batch', 4) or 4))
+        self.eval_batch = -(-eval_batch // ranks) * ranks
         # Dispatch groups the pipeline's worker takes at a time
         pull_samples = int(train_config.get('eval_pull_batch', 8) or 8)
         self.pull_batch = max(1, pull_samples // self.eval_batch)
@@ -198,7 +258,6 @@ class Evaluator:
         self._native_pool = None
         self._native_jobs = []
 
-        self._tb = None
         self._tensorboard = bool(train_config.get('tensorboard', True))
 
     def _tb_writer(self):
@@ -208,6 +267,26 @@ class Evaluator:
                 os.path.join(self.config.logdir, self.dataset.data_split),
                 enabled=self._tensorboard)
         return self._tb
+
+    def _close_tb(self):
+        """Flushes and closes the TB writer (a later run opens another),
+        before a rank's process exits under it."""
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
+
+    def _dispatch_groups(self):
+        """The dataset's indices in dispatch groups of ``eval_batch``
+        samples with an object each, in order (the last group may be
+        short). Under data-parallel ranks each rank reads the labels of
+        every world-th sample and the ranks exchange what they found."""
+        dataset = self.dataset
+        mine = [idx for idx in range(dp_lib.rank(), dataset.num_samples,
+                                     dp_lib.world_size())
+                if dataset.has_objects(dataset.sample_list[idx].name)]
+        valid = sorted(dp_lib.all_gather_objects(mine))
+        return [valid[i:i + self.eval_batch]
+                for i in range(0, len(valid), self.eval_batch)]
 
     def _slot_bucket(self, samples):
         return pipeline.slot_bucket(samples, self._slot_buckets,
@@ -239,8 +318,9 @@ class Evaluator:
                                                self._get_template_state())
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        print('restored checkpoint {} in {:.3f} s'.format(
-            step, time.perf_counter() - t0))
+        if dp_lib.is_main():
+            print('restored checkpoint {} in {:.3f} s'.format(
+                step, time.perf_counter() - t0))
         return state
 
     def get_evaluated_ckpts(self):
@@ -276,12 +356,14 @@ class Evaluator:
         Returns the record appended to ``logs/eval_<split>.jsonl`` (step,
         num_samples; in val mode the loss means, the metric means and
         mean magnitudes), plus, in val mode, ``metrics_per_box``: each
-        metric's values over the valid box slots, in sample order.
+        metric's values over the valid box slots, in sample order. Under
+        data-parallel ranks, rank 0 returns it and the others None.
         """
         dataset = self.dataset
+        is_main, world = dp_lib.is_main(), dp_lib.world_size()
         self.net.load_state_dict(
             state.eval_variables(use_ema=self.use_ema_weights))
-        output_dirs = self._output_dirs(global_step)
+        output_dirs = self._output_dirs(global_step) if is_main else None
 
         loss_sums, loss_counts = {}, {}
         metric_values = {}
@@ -334,23 +416,31 @@ class Evaluator:
         pipe = pipeline.BatchedPullPipeline(
             process_group, pull_batch=self.pull_batch,
             on_pull_time=lambda dt, n: infer_times.extend(
-                [dt / eval_batch] * (n * eval_batch)))
+                [dt / eval_batch] * (n * eval_batch))) \
+            if is_main else None
 
-        group_samples, group_device = [], []
         num_groups = 0
+        share = eval_batch // world
 
-        def dispatch_group():
+        def dispatch_group(host_rows, device_rows):
+            """One group's step on this rank's rows (padded to its share
+            by repeating its last row); rank 0 hands the gathered rows to
+            the pipeline with the group's host samples."""
             nonlocal num_groups
-            real = len(group_device)
-            padded = group_device + [group_device[-1]] * (eval_batch - real)
+            padded = device_rows + [device_rows[-1]] * (share -
+                                                        len(device_rows))
             batch = stack_samples(padded)
+            group_samples = _gather_host_samples(host_rows)
             # Pad rows ride along (no extra dispatches); process_group
             # only iterates the real samples. Per-box outputs are
             # truncated on the device to the group's slot bucket.
             bucket = self._slot_bucket(group_samples)
-            start = pipeline.mark(self.device)
-            pipe.add(list(group_samples), self._eval_step(batch, bucket),
-                     start)
+            start = pipeline.mark(self.device) if is_main else None
+            out = self._eval_step(batch, bucket)
+            if world > 1:
+                out = _gather_outputs(out)
+            if is_main:
+                pipe.add(group_samples, out, start)
             num_groups += 1
 
         # Ordered producer pool: sample assembly (KITTI IO, MSCNN merge,
@@ -360,7 +450,9 @@ class Evaluator:
             t0 = time.time()
             sample = dataset.get_sample_dict([idx])[0]
             if sample is None:
-                return None
+                raise RuntimeError('sample {} keeps an object by its labels '
+                                   'and yields none'.format(
+                                       dataset.sample_list[idx].name))
             device_sample = trainer_lib.prepare_sample(
                 sample, self.cfg.image_input_shape)
             if self.eval_mode == 'test':
@@ -369,31 +461,39 @@ class Evaluator:
             feed_times.append(time.time() - t0)
             return sample, device_sample
 
+        # This rank's rows of each group; a rank with no row in a tail
+        # group assembles the group's last sample for its pad rows
+        groups = self._dispatch_groups()
+        lo = dp_lib.rank() * share
+        own = [group[lo:lo + share] for group in groups]
+        todo = [idx for group, rows in zip(groups, own)
+                for idx in (rows or group[-1:])]
+        items = prefetch.ordered_prefetch(assemble, todo,
+                                          num_threads=self.producer_threads)
         try:
-            for item in prefetch.ordered_prefetch(
-                    assemble, range(dataset.num_samples),
-                    num_threads=self.producer_threads):
-                if item is None:
-                    continue
-                sample, device_sample = item
-                group_samples.append(sample)
-                group_device.append(device_sample)
-                if len(group_device) == eval_batch:
-                    dispatch_group()
-                    group_samples, group_device = [], []
-            if group_device:
-                dispatch_group()
+            for group, rows in zip(groups, own):
+                assembled = [next(items) for _ in (rows or group[-1:])]
+                dispatch_group([sample for sample, _ in assembled[:len(rows)]],
+                               [device for _, device in assembled])
         finally:
-            pipe.close()
+            items.close()
+            if pipe is not None:
+                pipe.close()
         if not num_groups:
             raise RuntimeError('Dataset produced no valid samples')
 
-        print('Evaluated {} samples at step {} in {:.3f} s'.format(
-            num_evaluated, global_step, time.perf_counter() - t_epoch))
+        if is_main:
+            print('Evaluated {} samples at step {} in {:.3f} s'.format(
+                num_evaluated, global_step, time.perf_counter() - t_epoch))
+        ranks = ''
+        if world > 1:
+            ranks = ' (rank {} of {})'.format(dp_lib.rank(), world)
         print('kernel launches: emd_cost_fused {}, emd_loss {} in {} groups'
-              .format(emd_ops.emd_cost_fused.launches - launches_before[0],
-                      emd_ops.emd_distance.launches - launches_before[1],
-                      num_groups))
+              '{}'.format(emd_ops.emd_cost_fused.launches - launches_before[0],
+                          emd_ops.emd_distance.launches - launches_before[1],
+                          num_groups, ranks))
+        if not is_main:
+            return None
         kitti_writers.print_inference_time_statistics(
             feed_times, infer_times)
 
@@ -525,37 +625,46 @@ class Evaluator:
         """Polls the checkpoint dir, evaluating new checkpoints (oldest
         first) as they appear and appending each to the ledger; stops
         after ``max_wait_iterations`` polls in a row found nothing new.
-        Returns the last step evaluated in the final round, or None."""
+        Returns the last step evaluated in the final round, or None.
+        Under data-parallel ranks, rank 0 polls and every rank evaluates
+        the steps it found."""
         manager = trainer_lib.CheckpointManager(self.config.checkpoint_dir)
         waits = 0
         last_seen = None
         try:
             while waits < max_wait_iterations:
-                steps = sorted(manager.all_steps())
-                evaluated = (self.get_evaluated_ckpts()
-                             if self.skip_evaluated_checkpoints else set())
-                todo = [s for s in steps if s not in evaluated]
+                todo = None
+                if dp_lib.is_main():
+                    steps = sorted(manager.all_steps())
+                    evaluated = (self.get_evaluated_ckpts()
+                                 if self.skip_evaluated_checkpoints
+                                 else set())
+                    todo = [s for s in steps if s not in evaluated]
+                todo = dp_lib.broadcast_object(todo)
 
                 if todo:
                     waits = 0
                     for step in todo:
                         state = self.restore_checkpoint(manager, step)
                         self.run_checkpoint_once(state, step)
-                        self._mark_evaluated(step)
+                        if dp_lib.is_main():
+                            self._mark_evaluated(step)
                         last_seen = step
                 else:
                     waits += 1
                     time.sleep(self.eval_wait_interval)
         finally:
             self.wait_for_native_eval()
+            self._close_tb()
         return last_seen
 
     def run_latest_checkpoints(self, ckpt_indices=None):
         """Evaluates specific checkpoints ('all', None or a list of
         steps), oldest first, without touching the ledger (as JAX).
-        Returns their ``run_checkpoint_once`` records."""
+        Returns their ``run_checkpoint_once`` records. Under data-parallel
+        ranks every rank evaluates the steps rank 0 found."""
         manager = trainer_lib.CheckpointManager(self.config.checkpoint_dir)
-        steps = sorted(manager.all_steps())
+        steps = dp_lib.broadcast_object(sorted(manager.all_steps()))
         if not steps:
             raise RuntimeError('No checkpoints found in ' +
                                self.config.checkpoint_dir)
@@ -570,4 +679,5 @@ class Evaluator:
                 results.append(self.run_checkpoint_once(state, step))
         finally:
             self.wait_for_native_eval()
+            self._close_tb()
         return results

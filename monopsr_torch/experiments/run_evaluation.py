@@ -11,13 +11,18 @@ Evaluates every checkpoint under ``data/outputs/<config name>/
 checkpoints/`` (with ``--repeated``, polls for new ones and skips those
 in ``evaluated_<split>.txt``). Runs on CUDA unless ``--device cpu`` is
 given, and raises when CUDA is asked for and absent. Waits for the
-native AP evaluator's runs before it returns.
+native AP evaluator's runs before it returns. When the config's
+``eval_data_parallel`` (or ``data_parallel``), clamped to the visible
+cards, is above 1, that many ranks are spawned
+(``parallel.data_parallel.launch``), one per card.
 """
 
 import argparse
 import os
 
 from monopsr_torch import config as config_utils
+from monopsr_torch.eval.evaluator import requested_eval_ranks
+from monopsr_torch.parallel import data_parallel
 from monopsr_torch.utils import device as device_lib
 
 
@@ -34,6 +39,10 @@ def evaluate(config, data_split='val', repeated=True,
     if repeated:
         return evaluator.repeated_checkpoint_run()
     return evaluator.run_latest_checkpoints('all')
+
+
+def _evaluate_rank(device, config, data_split, repeated, kitti_native_eval):
+    evaluate(config, data_split, repeated, kitti_native_eval, device)
 
 
 def main(argv=None):
@@ -53,6 +62,12 @@ def main(argv=None):
 
     device = device_lib.resolve_device(args.device)
     config = config_utils.parse_yaml_config(args.config_path)
+    ranks = data_parallel.clamped_ranks(
+        requested_eval_ranks(config.train_config), device)
+    if ranks > 1:
+        return data_parallel.launch(
+            _evaluate_rank, ranks, device, config, args.data_split,
+            args.repeated, not args.no_kitti_native_eval)
     return evaluate(config, args.data_split, repeated=args.repeated,
                     kitti_native_eval=not args.no_kitti_native_eval,
                     device=device)

@@ -11,7 +11,8 @@ same flags:
 ``data/outputs/NAME/NAME.yaml`` instead of ``--config_path``;
 ``--det_2d_score_thr`` overrides the MSCNN score thresholds; a test
 split reads ``testing/`` without labels. Runs on CUDA unless ``--device
-cpu`` is given, and raises when CUDA is asked for and absent.
+cpu`` is given, and raises when CUDA is asked for and absent. Spawns
+data-parallel ranks as ``run_evaluation`` does.
 """
 
 import argparse
@@ -19,6 +20,8 @@ import os
 
 import monopsr_torch
 from monopsr_torch import config as config_utils
+from monopsr_torch.eval.evaluator import requested_eval_ranks
+from monopsr_torch.parallel import data_parallel
 from monopsr_torch.utils import device as device_lib
 
 
@@ -36,6 +39,10 @@ def inference(config, data_split, ckpt_indices='all', device=None):
     evaluator = Evaluator(config, dataset, eval_mode='test',
                           do_kitti_native_eval=False, device=device)
     return evaluator.run_latest_checkpoints(ckpt_indices)
+
+
+def _inference_rank(device, config, data_split, ckpt_indices):
+    inference(config, data_split, ckpt_indices, device)
 
 
 def main(argv=None):
@@ -75,6 +82,11 @@ def main(argv=None):
         ckpt_indices = [int(c) for c in ckpt_indices]
     else:
         ckpt_indices = 'all'
+    ranks = data_parallel.clamped_ranks(
+        requested_eval_ranks(config.train_config), device)
+    if ranks > 1:
+        return data_parallel.launch(_inference_rank, ranks, device, config,
+                                    args.data_split, ckpt_indices)
     return inference(config, args.data_split, ckpt_indices, device)
 
 

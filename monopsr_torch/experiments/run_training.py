@@ -10,13 +10,17 @@ same flags:
 Runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
 asked for and absent. Outputs (config copy, checkpoints, logs) go to
 ``data/outputs/<config name>/``; a second call resumes from the latest
-checkpoint unless the config sets ``overwrite_checkpoints``.
+checkpoint unless the config sets ``overwrite_checkpoints``. When the
+config's ``data_parallel``, clamped to the visible cards, is above 1,
+that many ranks are spawned (``parallel.data_parallel.launch``), one
+per card; the config alone decides.
 """
 
 import argparse
 import os
 
 from monopsr_torch import config as config_utils
+from monopsr_torch.parallel import data_parallel
 from monopsr_torch.utils import device as device_lib
 
 
@@ -29,6 +33,10 @@ def train(config, data_split=None, device=None):
 
     dataset = KittiDataset(config.dataset_config, 'train')
     return trainer.train(config, dataset, device=device)
+
+
+def _train_rank(device, config, data_split):
+    train(config, data_split, device)
 
 
 def main(argv=None):
@@ -48,7 +56,13 @@ def main(argv=None):
     device = device_lib.resolve_device(args.device)
     config = config_utils.parse_yaml_config(args.config_path)
     config_utils.copy_config_into_experiment_dir(args.config_path, config)
-    train(config, args.data_split, device)
+    ranks = data_parallel.clamped_ranks(
+        config.train_config.get('data_parallel', 1), device)
+    if ranks > 1:
+        data_parallel.launch(_train_rank, ranks, device, config,
+                             args.data_split)
+    else:
+        train(config, args.data_split, device)
 
 
 if __name__ == '__main__':

@@ -16,6 +16,7 @@ from torch import nn
 
 from monopsr_torch.models.resnet import RESNET_SPECS, Conv2d, ResNetV1
 from monopsr_torch.ops import crop_resize
+from monopsr_torch.parallel import data_parallel
 
 
 def _nchw(x):
@@ -36,6 +37,14 @@ class DecoderBatchNorm(nn.BatchNorm2d):
     them; the running statistics become 0.997 * old + 0.003 * batch.
     (``nn.BatchNorm2d`` itself would update ``running_var`` with the
     unbiased variance.) The output is float32; the caller casts.
+
+    Under data-parallel ranks the batch is the global one, as under
+    JAX's ``jit`` over a sharded batch: each rank's per-channel sums of
+    x and x^2 and its element count are summed over the ranks before
+    the mean and variance are formed, with the gradient flowing back
+    through the sum to every rank (``parallel.data_parallel
+    .sum_over_ranks``); every rank's running statistics follow the
+    global ones.
     """
 
     def __init__(self, features):
@@ -46,8 +55,17 @@ class DecoderBatchNorm(nn.BatchNorm2d):
         if not self.training:
             return super().forward(x)
         axes = (0, 2, 3)
-        mean = x.mean(axes)
-        var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+        if data_parallel.world_size() > 1:
+            c = x.shape[1]
+            sums = data_parallel.sum_over_ranks(torch.cat([
+                x.sum(axes), (x * x).sum(axes),
+                x.new_full((1,), x.numel() // c)]))
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                              min=0.0)
+        else:
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.copy_(0.997 * self.running_mean +
                                     (1.0 - 0.997) * mean)

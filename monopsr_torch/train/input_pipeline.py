@@ -3,13 +3,25 @@
 Counterpart of ``monopsr_tpu/train/input_pipeline.py``: sample assembly
 (PNG decode, label merge, jitter) and ``prepare_sample`` (resize,
 encodings) run in background threads that stay ahead of the train step.
-The dataset is read under one lock, so the order of samples is the
-dataset's; with several threads, batches may leave in another order than
-they were read. A thread that fails hands its exception to the consumer,
+The dataset is read under one lock, and batches leave in the order they
+were read. A thread that fails hands its exception to the consumer,
 which raises it from ``get_batch``.
+
+A batch is the first ``batch_size`` samples with a valid object of
+consecutive reads of that size (the rest of the last read dropped), as
+JAX's loader takes them. The loader advances the dataset over each read
+(``next_batch_slots``), tells the samples without a valid object from
+their label files (``has_objects``), and decodes only the samples it
+keeps (``load_slots``). Under data-parallel ranks each rank's loader
+reads only its own rows of each global batch of ``world_size *
+batch_size`` samples, by the same rule. A seeded dataset draws each
+sample's randomness from (seed, sample name, epoch), so the ranks
+together read the global batch one process reads with ``batch_size *
+world_size``, and one process reads what JAX's loader reads. With
+``seed: !!null`` each process shuffles and draws from its own unseeded
+stream, which only the samples it decodes advance, so neither holds.
 """
 
-import queue
 import threading
 
 from monopsr_torch.eval import evaluator
@@ -21,20 +33,29 @@ class PrefetchingLoader:
 
     Args:
         dataset: KittiDataset in 'train' mode.
-        batch_size: samples per batch.
+        batch_size: samples per batch (per rank).
         image_input_shape: (h, w) host resize target.
         queue_depth: max prepared batches in flight.
         num_threads: producer threads (dataset access is locked; the
             parallelism is in prepare_sample).
+        rank, world_size: this rank and the number of data-parallel
+            ranks; the global batch is ``world_size * batch_size``.
     """
 
     def __init__(self, dataset, batch_size, image_input_shape,
-                 queue_depth=4, num_threads=2):
+                 queue_depth=4, num_threads=2, rank=0, world_size=1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.image_input_shape = image_input_shape
+        self.rank = rank
+        self.world_size = world_size
 
-        self._queue = queue.Queue(maxsize=queue_depth)
+        self._ready = {}           # batch number -> batch
+        self._error = None
+        self._read = 0             # batches read so far
+        self._next = 0             # next batch number to hand out
+        self._cond = threading.Condition()
+        self._in_flight = threading.Semaphore(queue_depth)
         self._stop = threading.Event()
         self._dataset_lock = threading.Lock()
         self._threads = [
@@ -43,48 +64,72 @@ class PrefetchingLoader:
         for t in self._threads:
             t.start()
 
-    def _next_samples(self):
-        """Pulls raw sample dicts under the dataset lock."""
-        with self._dataset_lock:
-            return self.dataset.next_batch(self.batch_size, True)
+    def _own_samples(self):
+        """This rank's raw sample dicts of the next global batch: the
+        first ``world_size * batch_size`` samples with a valid object, of
+        consecutive ``next_batch`` reads of that size (the rest of the
+        last read dropped), as one process's loader takes them."""
+        global_batch = self.world_size * self.batch_size
+        lo, hi = self.rank * self.batch_size, (self.rank + 1) * self.batch_size
+        own, taken = [], 0
+        while taken < global_batch:
+            for slot in self.dataset.next_batch_slots(global_batch, True):
+                if taken == global_batch:
+                    break
+                if self.dataset.has_objects(slot[0]):
+                    if lo <= taken < hi:
+                        own.append(slot)
+                    taken += 1
+        samples = self.dataset.load_slots(own)
+        if any(s is None for s in samples):
+            raise RuntimeError('a sample with labels left no object: {}'
+                               .format(own))
+        return samples
 
-    def _put(self, item):
-        while not self._stop.is_set():
-            try:
-                self._queue.put(item, timeout=0.5)
-                return
-            except queue.Full:
-                continue
+    def _next_samples(self):
+        """(batch number, raw sample dicts) under the dataset lock."""
+        with self._dataset_lock:
+            samples = self._own_samples()
+            number = self._read
+            self._read += 1
+        return number, samples
 
     def _worker(self):
         while not self._stop.is_set():
+            if not self._in_flight.acquire(timeout=0.5):
+                continue
             try:
-                samples = []
-                while len(samples) < self.batch_size:
-                    raw = self._next_samples()
-                    for s in raw:
-                        if s is not None and len(samples) < self.batch_size:
-                            samples.append(trainer_lib.prepare_sample(
-                                s, self.image_input_shape))
-                batch = evaluator.stack_samples(samples)
+                number, raw = self._next_samples()
+                batch = evaluator.stack_samples(
+                    [trainer_lib.prepare_sample(s, self.image_input_shape)
+                     for s in raw])
             except Exception as e:        # handed to get_batch's caller
-                self._put(e)
+                with self._cond:
+                    if self._error is None:
+                        self._error = e
+                    self._cond.notify_all()
                 return
-            self._put(batch)
+            with self._cond:
+                self._ready[number] = batch
+                self._cond.notify_all()
 
     def get_batch(self, timeout=300):
-        item = self._queue.get(timeout=timeout)
-        if isinstance(item, Exception):
-            raise RuntimeError('input pipeline thread failed') from item
-        return item
+        """The next batch in read order; raises RuntimeError if a thread
+        failed first, TimeoutError after ``timeout`` seconds."""
+        with self._cond:
+            if not self._cond.wait_for(
+                    lambda: self._next in self._ready or
+                    self._error is not None, timeout):
+                raise TimeoutError('no batch in {} s'.format(timeout))
+            if self._next not in self._ready:
+                raise RuntimeError(
+                    'input pipeline thread failed') from self._error
+            batch = self._ready.pop(self._next)
+            self._next += 1
+        self._in_flight.release()
+        return batch
 
     def stop(self, timeout=10.0):
         self._stop.set()
-        # Drain so workers blocked on put() can exit
-        try:
-            while True:
-                self._queue.get_nowait()
-        except queue.Empty:
-            pass
         for t in self._threads:
             t.join(timeout)

@@ -15,8 +15,15 @@ for ``TrainState.create``). Where the JAX loop leans on a TPU mechanism:
 - ``steps_per_dispatch`` (K steps in one device program) has no
   counterpart: steps run one by one, and the log is the JAX loop's at
   K = 1;
-- ``data_parallel > 1`` and ``summary_images`` raise NotImplementedError
-  (ROADMAP M16 and M18).
+- ``data_parallel`` (clamped to the visible cards, as JAX clamps its
+  mesh) counts processes, not mesh devices: the loop runs in each rank
+  of a process group that ``parallel.data_parallel.launch`` starts (the
+  training CLI starts it when the clamped count is above 1). The global
+  batch is ``world_size * batch_size`` images, each rank's loader reads
+  its rows, the gradients are averaged over ranks before the clip, the
+  decoder's batch norms use global statistics, and only rank 0 writes
+  logs and checkpoints;
+- ``summary_images`` raises NotImplementedError (ROADMAP M18).
 """
 
 import json
@@ -29,6 +36,7 @@ import torch
 from monopsr_torch import constants as C
 from monopsr_torch.eval import evaluator
 from monopsr_torch.models import monopsr
+from monopsr_torch.parallel import data_parallel as dp_lib
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import pretrained
 from monopsr_torch.train.train_state import TrainState
@@ -106,6 +114,10 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
         (detached scalars). The step minimizes the mean over images of
         the per-image total loss. GT offset targets stay coupled to the
         live predictions, as in the reference; GT crops carry no gradient.
+        Under data-parallel ranks ``batch`` is this rank's rows; the
+        gradients are averaged over the ranks before the optimizer clips
+        them, so every rank applies the global batch's update, and
+        ``losses`` stay this rank's means.
     """
     device = device_lib.resolve_device(device)
     net = net.to(device).train()
@@ -126,6 +138,7 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
         totals.mean().backward()
         grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
                  for name, p in state.params.items()}
+        dp_lib.mean_over_ranks(grads.values())
         state.apply_gradients(grads, tx,
                               ema_decay=ema_decay if use_ema else None)
         for p in state.params.values():
@@ -244,11 +257,30 @@ def restore_checkpoint(manager, step, state):
     return state
 
 
+def state_tensors(state):
+    """Every tensor of a TrainState: parameters, batch stats, EMA and
+    optimizer state."""
+    out = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            for value in tree.values():
+                walk(value)
+        elif torch.is_tensor(tree):
+            out.append(tree)
+
+    for part in (state.params, state.batch_stats, state.ema_params,
+                 state.opt_state):
+        walk(part)
+    return out
+
+
 def restore_latest(manager, state):
     """Restores the latest checkpoint into ``state`` in place
     (``restore_checkpoint``) and returns (state, step), or (state, 0) when
-    there is none."""
-    latest = manager.latest_step()
+    there is none. Under data-parallel ranks every rank restores the step
+    rank 0 found."""
+    latest = dp_lib.broadcast_object(manager.latest_step())
     if latest is None:
         return state, 0
     return restore_checkpoint(manager, latest, state), latest
@@ -297,21 +329,22 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
             for and absent.
 
     Returns:
-        final TrainState.
+        final TrainState (this rank's, under data-parallel ranks).
+
+    Raises ValueError when ``data_parallel``, clamped to the visible
+    cards, is above 1 and this process is not one of the ranks that
+    ``parallel.data_parallel.launch`` starts: run it in those ranks (the
+    training CLI does). Inside a process group the group's size is the
+    number of ranks.
     """
     device = device_lib.resolve_device(device)
     train_config = config.train_config
     model_config = config.model_config
     dataset_config = config.dataset_config
 
-    # The JAX loop clamps its mesh to the devices present (a config's
-    # data_parallel 2 runs as 1 on one device); more than one left is M16.
-    data_parallel = min(int(train_config.get('data_parallel', 1) or 1),
-                        device_lib.visible_device_count(device))
-    if data_parallel > 1:
-        raise NotImplementedError(
-            'data_parallel {} over the visible devices is not ported yet '
-            '(ROADMAP M16)'.format(data_parallel))
+    dp_lib.require_ranks(train_config.get('data_parallel', 1), device,
+                         'data_parallel')
+    world, is_main = dp_lib.world_size(), dp_lib.is_main()
     if bool(config.get('summary_images', False)):
         raise NotImplementedError(
             'summary_images needs a PNG writer, not ported yet '
@@ -339,15 +372,18 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     if not train_config.get('overwrite_checkpoints', False):
         t0 = time.perf_counter()
         state, start_step = restore_latest(manager, state)
-        if start_step:
+        if start_step and is_main:
             print('restored checkpoint {} in {:.3f} s'.format(
                 start_step, time.perf_counter() - t0))
     else:
         start_step = 0
+    # Every rank starts from rank 0's state (JAX replicates it on the mesh)
+    dp_lib.replicate(state_tensors(state))
 
     logger = ScalarLogger(
         config.logdir,
-        tensorboard=bool(train_config.get('tensorboard', True)))
+        tensorboard=bool(train_config.get('tensorboard', True))) \
+        if is_main else None
     max_iterations = max_steps or train_config.max_iterations
     summary_interval = log_every or train_config.summary_interval
     checkpoint_interval = train_config.checkpoint_interval
@@ -358,15 +394,18 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     loader = PrefetchingLoader(
         dataset, batch_size, cfg.image_input_shape,
         queue_depth=int(train_config.get('prefetch_depth', 4) or 4),
-        num_threads=int(train_config.get('prefetch_threads', 2) or 2))
+        num_threads=int(train_config.get('prefetch_threads', 2) or 2),
+        rank=dp_lib.rank(), world_size=world)
     try:
-        _log_device_memory(logger, start_step, device)
+        if is_main:
+            _log_device_memory(logger, start_step, device)
         last_time = time.time()
         step = start_step
         last_log_step = start_step
         while step < max_iterations:
             batch = loader.get_batch()
-            if profile_step is not None and step + 1 == int(profile_step):
+            if (profile_step is not None and step + 1 == int(profile_step)
+                    and is_main):
                 state, losses = _profiled_step(train_step, state, batch,
                                                config.logdir, step + 1,
                                                device)
@@ -375,6 +414,9 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
             step += 1
 
             if step % summary_interval == 0:
+                # the global batch's means (each rank's are over its rows)
+                dp_lib.mean_over_ranks(losses.values())
+            if step % summary_interval == 0 and is_main:
                 scalars = {k: float(v) for k, v in losses.items()}
                 scalars['learning_rate'] = float(schedule(step))
                 scalars['steps_per_sec'] = (
@@ -385,7 +427,8 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
                 print('step {:6d}  total {:.4f}  {:.2f} steps/s'.format(
                     step, scalars['total_loss'], scalars['steps_per_sec']))
 
-            if step % checkpoint_interval == 0 or step == max_iterations:
+            if is_main and (step % checkpoint_interval == 0 or
+                            step == max_iterations):
                 t0 = time.perf_counter()
                 save_checkpoint(manager, state, step)
                 print('checkpoint {}: {} bytes in {:.3f} s'.format(
@@ -393,7 +436,8 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
                     time.perf_counter() - t0))
     finally:
         loader.stop()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

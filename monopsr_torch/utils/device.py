@@ -5,7 +5,8 @@ points run on CUDA unless the caller asks for the CPU; a missing card is
 an error, never a quiet fall back to the CPU.
 
 The precision policy is set here too, since every entry point (the
-three CLIs, ``trainer.train``, ``Evaluator``) resolves its device here:
+three CLIs, ``trainer.train``, ``Evaluator``, and each data-parallel
+rank's process) resolves its device here:
 on CUDA, float32 matmuls and convolutions run in float32, not in TF32,
 as the card-against-CPU checks run them. The bfloat16 compute of a
 config's towers and decoder is not affected.
@@ -19,6 +20,19 @@ def set_float32_precision():
     allows it by default), for the whole process."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def rank_device(device, rank, num_ranks):
+    """The device of rank ``rank`` of ``num_ranks`` data-parallel ranks
+    started on ``device``: ``cuda:<rank>`` when each rank has a card of
+    its own, else the card ``device`` names (``cuda:0`` for ``cuda``),
+    shared by the ranks, or the CPU."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return device
+    if torch.cuda.device_count() >= num_ranks:
+        return torch.device('cuda', rank)
+    return torch.device('cuda', device.index or 0)
 
 
 def visible_device_count(device):

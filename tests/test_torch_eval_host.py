@@ -600,8 +600,11 @@ def test_native_eval_failure_reaches_the_polling_loop(tmp_path,
 
 def test_evaluator_refuses_data_parallel(tmp_path, monkeypatch):
     # eval_data_parallel is clamped to the visible devices (1 on the CPU,
-    # where 2 runs as 1: tests/test_torch_evaluator.py); it raises only
-    # where more than one is left (two devices counted here)
+    # where 2 runs as 1: tests/test_torch_evaluator.py); where more than
+    # one is left, the evaluator runs only inside the ranks that
+    # parallel.data_parallel.launch starts (the CLIs start them;
+    # tests/test_torch_data_parallel.py), and raises outside them (two
+    # devices counted here)
     from monopsr_torch.utils import device as device_lib
     assert device_lib.visible_device_count(torch.device('cpu')) == 1
     monkeypatch.setattr(device_lib, 'visible_device_count', lambda d: 2)
@@ -610,7 +613,7 @@ def test_evaluator_refuses_data_parallel(tmp_path, monkeypatch):
         raw['train_config'].pop('eval_data_parallel', None)
         raw['train_config'][key] = 2
         config = ConfigObj(raw)
-        with pytest.raises(NotImplementedError, match='M16'):
+        with pytest.raises(ValueError, match='data_parallel.launch'):
             evaluator.Evaluator(config, None, 'val', device='cpu')
     with pytest.raises(ValueError, match='eval_mode'):
         evaluator.Evaluator(ConfigObj(_raw_config(tmp_path, 1)), None,

@@ -21,6 +21,8 @@ names = ['monopsr_torch'] + [
                                           'monopsr_torch.')]
 for name in names:
     importlib.import_module(name)
+assert {'monopsr_torch.parallel.data_parallel',
+        'monopsr_torch.experiments.accuracy_gate'} <= set(names), names
 import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in (
     'jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml', 'monopsr_tpu')
@@ -31,15 +33,17 @@ print(len(names), leaked)
 
 def test_package_imports_without_jax_or_reference():
     """Every module of the port, the train modules, the config reader,
-    the KITTI dataset layer, the evaluator's host side, the three CLIs
-    and the data-preparation tools (monopsr_torch.tools) included (and
+    the KITTI dataset layer, the evaluator's host side, the three CLIs,
+    the data-preparation tools (monopsr_torch.tools), the data-parallel
+    ranks (monopsr_torch.parallel) and the accuracy gate
+    (monopsr_torch.experiments.accuracy_gate) included (and
     chip_smoke.py), imports with jax, flax, optax, cv2, PIL,
     yaml and monopsr_tpu made unimportable."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 58
+    assert int(count) >= 61
     assert leaked.strip() == '[]'
 
 
@@ -102,6 +106,14 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
             cli.main(['--config_path', production])
         with pytest.raises(RuntimeError, match='CUDA'):
             cli.main(['--config_path', production, '--device', 'cuda'])
+
+    # The accuracy gate and the data-parallel ranks
+    from monopsr_torch.experiments import accuracy_gate
+    from monopsr_torch.parallel import data_parallel
+    with pytest.raises(RuntimeError, match='CUDA'):
+        accuracy_gate.main(['--steps', '1'])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        data_parallel.launch(print, 2, None)
 
 
 def test_kernel_wrapper_refuses_other_devices():

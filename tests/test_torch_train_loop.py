@@ -299,7 +299,13 @@ def test_loader_hands_a_thread_failure_to_the_consumer():
     from monopsr_torch.train.input_pipeline import PrefetchingLoader
 
     class Broken:
-        def next_batch(self, batch_size, shuffle):
+        def next_batch_slots(self, batch_size, shuffle):
+            return [('x', 0)] * batch_size
+
+        def has_objects(self, sample_name):
+            return True
+
+        def load_slots(self, slots):
             raise FileNotFoundError('Image not found: x.png')
 
     loader = PrefetchingLoader(Broken(), 1, (48, 160), num_threads=2)
@@ -313,18 +319,22 @@ def test_loader_hands_a_thread_failure_to_the_consumer():
 
 
 def test_loop_refuses_unported_options(tmp_path, monkeypatch):
-    # data_parallel is clamped to the visible devices: it raises only
-    # where more than one is left (two devices counted here)
+    # data_parallel is clamped to the visible devices: where more than one
+    # is left, the loop runs only inside the ranks that
+    # parallel.data_parallel.launch starts (the CLI starts them;
+    # tests/test_torch_data_parallel.py), and raises outside them (two
+    # devices counted here)
     from monopsr_torch.utils import device as device_lib
     monkeypatch.setattr(device_lib, 'visible_device_count', lambda d: 2)
-    for key, value, match in (('data_parallel', 2, 'M16'),
-                              ('summary_images', True, 'M18')):
+    for key, value, error, match in (
+            ('data_parallel', 2, ValueError, 'data_parallel.launch'),
+            ('summary_images', True, NotImplementedError, 'M18')):
         pconfig = ConfigObj(_raw_config(tmp_path, 1))
         if key == 'summary_images':
             pconfig.summary_images = value
         else:
             setattr(pconfig.train_config, key, value)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match=match):
             trainer.train(pconfig, None, device='cpu')
 
 
