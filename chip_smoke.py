@@ -102,6 +102,22 @@ Phases, any failure of which exits non-zero:
    must reach its verdict (exit 0, or exit 1 with its ``ACCURACY GATE
    FAILED: ...`` line) with every key of the JAX gate's report; printed:
    the verdict and the train, eval and native AP seconds.
+16. pretrained trunk and remat: a seeded synthetic slim ResNet-101 trunk
+   (conv1 and blocks 1-3, the zoo checkpoint's names, 27.6 M float32
+   values) written as a TF checkpoint V2 bundle and as a torchvision
+   .pth, both converted by the port's CLIs (``python -m monopsr_torch
+   .tools.convert_tf_resnet`` / ``convert_torch_resnet``), whose NPZs
+   must be equal bit for bit; the training CLI from that trunk on the
+   production YAML (phase 9's substitutions, 2 steps, summary images,
+   the step-2 profile, ``remat_towers: True``): the loader's counts,
+   both towers holding the NPZ, the grids, the trace, finite losses;
+   then ``make_train_step`` at production width for no remat, 'unit'
+   and 'conv_outs' at train batches 1 and 8 (peak GB, ms/step; 'unit'
+   must peak below no remat at batch 8), and one float32 step at batch
+   2 per policy with cuDNN and PyTorch's deterministic algorithms, whose
+   gradients must equal no remat's bit for bit or deviate no more than
+   two no-remat runs do.
+   data/pretrained/chip_smoke_trunk.npz and the run's outputs are removed.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -114,10 +130,12 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -125,6 +143,7 @@ import torch
 import monopsr_torch
 from monopsr_torch import config as config_lib
 from monopsr_torch import constants as C
+from monopsr_torch import weights
 from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
 from monopsr_torch.eval import evaluator, native_eval
 from monopsr_torch.geometry import class_stats
@@ -133,8 +152,9 @@ from monopsr_torch.models.monopsr_net import NetConfig
 from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.parallel import data_parallel
+from monopsr_torch.tools import convert_tf_resnet, odapi_manifest
 from monopsr_torch.train import optimizer as opt_lib
-from monopsr_torch.train import trainer
+from monopsr_torch.train import pretrained, trainer
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io
@@ -2220,6 +2240,457 @@ def accuracy_gate_phase(card):
                 k1_launches=k1)
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the pretrained trunk from the port's converters, tower remat
+# --------------------------------------------------------------------------
+
+TRUNK_NAME = 'chip_smoke_trunk'
+PRETRAINED_LOOP_NAME = 'chip_smoke_pretrained'
+REMAT_POLICIES = (None, 'unit', 'conv_outs')
+REMAT_BATCHES = (1, 8)
+REMAT_STEPS = 3
+SLIM_SCOPE = 'FirstStageFeatureExtractor/resnet_v1_101/'
+
+
+def _varint(value):
+    out = bytearray()
+    while True:
+        byte = value & 0x7f
+        value >>= 7
+        if not value:
+            out.append(byte)
+            return bytes(out)
+        out.append(byte | 0x80)
+
+
+def _proto_field(number, wire, payload):
+    tag = _varint((number << 3) | wire)
+    if wire == 0:
+        return tag + _varint(payload)
+    if wire == 2:
+        return tag + _varint(len(payload)) + payload
+    return tag + struct.pack('<I', payload)          # wire 5
+
+
+def _sstable_block(entries):
+    """Sorted (key, value) byte pairs -> one uncompressed SSTable block
+    (a restart point at every entry, no prefix sharing)."""
+    body, restarts = bytearray(), []
+    for key, value in entries:
+        restarts.append(len(body))
+        body += _varint(0) + _varint(len(key)) + _varint(len(value))
+        body += key + value
+    for r in restarts:
+        body += struct.pack('<I', r)
+    return bytes(body + struct.pack('<I', len(restarts)))
+
+
+def write_tf_bundle(prefix, tensors):
+    """Writes ``tensors`` ({name: array}) as a TF checkpoint V2 bundle:
+    <prefix>.index (an SSTable of BundleEntryProto, zeroed CRCs, which
+    the port's reader does not check) and one data shard. A writer for
+    this smoke test only, so that the converter reads the format TF
+    writes without TF on the machine."""
+    dtypes = {np.dtype('float32'): 1, np.dtype('int64'): 9}
+    data = bytearray()
+    entries = [(b'', _proto_field(1, 0, 1))]         # header: one shard
+    for name in sorted(tensors):
+        array = np.ascontiguousarray(tensors[name])
+        shape = b''.join(_proto_field(2, 2, _proto_field(1, 0, d))
+                         for d in array.shape)
+        entries.append((name.encode(), _proto_field(1, 0, dtypes[
+            array.dtype]) + _proto_field(2, 2, shape) + _proto_field(
+            4, 0, len(data)) + _proto_field(5, 0, array.nbytes) +
+            _proto_field(6, 5, 0)))
+        data += array.tobytes()
+    data_block = _sstable_block(entries)
+    index = bytearray(data_block + b'\x00' + struct.pack('<I', 0))
+    meta_offset, meta_block = len(index), _sstable_block([])
+    index += meta_block + b'\x00' + struct.pack('<I', 0)
+    index_offset = len(index)
+    index_block = _sstable_block([(entries[-1][0] + b'\xff', _varint(0) +
+                                   _varint(len(data_block)))])
+    index += index_block + b'\x00' + struct.pack('<I', 0)
+    footer = (_varint(meta_offset) + _varint(len(meta_block)) +
+              _varint(index_offset) + _varint(len(index_block)))
+    index += footer + b'\x00' * (40 - len(footer)) + struct.pack(
+        '<Q', convert_tf_resnet._SSTABLE_MAGIC)
+    with open(prefix + '.index', 'wb') as f:
+        f.write(index)
+    with open(prefix + '.data-00000-of-00001', 'wb') as f:
+        f.write(data)
+
+
+def synthetic_slim_trunk(seed):
+    """The zoo checkpoint's ResNet-101 trunk (conv1 and blocks 1-3, its
+    names and shapes from ``odapi_manifest``), seeded: He-scaled conv
+    kernels, batch norms near identity; plus the zoo's non-trunk
+    variables, which the converters must drop."""
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for name, shape in odapi_manifest.trunk_manifest(depth=101).items():
+        leaf = name.rsplit('/', 1)[1]
+        if leaf == 'weights':
+            fan_in = shape[0] * shape[1] * shape[2]
+            value = rng.standard_normal(shape, np.float32) / np.float32(
+                np.sqrt(fan_in))
+        elif leaf == 'gamma':
+            value = rng.uniform(0.8, 1.2, shape)
+        elif leaf == 'moving_variance':
+            value = rng.uniform(0.5, 1.5, shape)
+        else:
+            value = rng.normal(0.0, 0.1, shape)
+        tensors[name] = np.asarray(value, np.float32)
+    for name in odapi_manifest.distractor_names(depth=101):
+        tensors[name] = (np.asarray([142000], np.int64)
+                         if name == 'global_step' else
+                         rng.standard_normal((4, 4), np.float32))
+    return tensors
+
+
+def torchvision_state_dict(tensors):
+    """The trunk's tensors (the manifest's names) under torchvision's
+    ResNet names (OIHW)."""
+    bn = {'gamma': 'weight', 'beta': 'bias', 'moving_mean': 'running_mean',
+          'moving_variance': 'running_var'}
+    out = {}
+    for name in odapi_manifest.trunk_manifest(depth=101):
+        value = tensors[name]
+        rest = name[len(SLIM_SCOPE):]
+        m = re.match(r'block(\d)/unit_(\d+)/bottleneck_v1/(\w+)/(.+)$', rest)
+        layer, leaf = (m.group(3), m.group(4)) if m else rest.split('/', 1)
+        prefix = ('layer{}.{}.'.format(m.group(1), int(m.group(2)) - 1)
+                  if m else '')
+        if leaf == 'weights':
+            key = {'shortcut': 'downsample.0'}.get(layer, layer) + '.weight'
+            value = value.transpose(3, 2, 0, 1)
+        else:
+            bn_name = ('downsample.1' if layer == 'shortcut' else
+                       'bn' + layer[-1])
+            key = bn_name + '.' + bn[leaf.split('/')[1]]
+        out[prefix + key] = torch.from_numpy(np.ascontiguousarray(value))
+    return out
+
+
+def converter_chain(card):
+    """Both converter CLIs on a synthetic trunk at full ResNet-101 depth:
+    their NPZs equal array for array; returns the NPZ path (the torch
+    converter's, kept for the training run), the loader counts the JAX
+    assertion gives and the report."""
+    top = monopsr_torch.top_dir()
+    work = os.path.join(top, 'build', 'chip_smoke', 'trunk')
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.time()
+    tensors = synthetic_slim_trunk(1)
+    prefix = os.path.join(work, 'model.ckpt')
+    write_tf_bundle(prefix, tensors)
+    pth = os.path.join(work, 'resnet101.pth')
+    torch.save(torchvision_state_dict(tensors), pth)
+    write_s = time.time() - t0
+    npz = os.path.join(monopsr_torch.data_dir(), 'pretrained',
+                       TRUNK_NAME + '.npz')
+    seconds, arrays = {}, {}
+    for tool, flag, source in (('convert_tf_resnet', '--tf_checkpoint',
+                                prefix),
+                               ('convert_torch_resnet', '--torch_weights',
+                                pth)):
+        t0 = time.time()
+        run_cli(tool, [flag, source, '--out_name', TRUNK_NAME], 'Wrote',
+                package='monopsr_torch.tools')
+        seconds[tool] = time.time() - t0
+        with np.load(npz) as data:
+            arrays[tool] = {k: data[k] for k in data.files}
+    tf_npz, th_npz = arrays['convert_tf_resnet'], arrays[
+        'convert_torch_resnet']
+    if sorted(tf_npz) != sorted(th_npz) or any(
+            tf_npz[k].dtype != th_npz[k].dtype or
+            tf_npz[k].tobytes() != th_npz[k].tobytes() for k in tf_npz):
+        fail('converters: the TF and the torchvision NPZs differ')
+    trunk = list(odapi_manifest.trunk_manifest(depth=101))
+    n_conv = sum(1 for k in trunk if k.endswith('/weights'))
+    n_bn = sum(1 for k in trunk if '/BatchNorm/' in k)
+    if len(tf_npz) != n_conv + n_bn:
+        fail('converters: {} arrays from {} trunk variables'.format(
+            len(tf_npz), n_conv + n_bn))
+    counts = (2 * (n_conv + n_bn // 2), 2 * (n_bn // 2))
+    n_floats = sum(v.size for v in tf_npz.values())
+    print('pretrained trunk ({}): synthetic slim ResNet-101 trunk, {} '
+          'variables ({} float32 values) + {} distractors, written as a TF '
+          'checkpoint bundle and a torchvision .pth in {:.1f} s; '
+          'convert_tf_resnet {:.1f} s, convert_torch_resnet {:.1f} s; the '
+          'two NPZs equal, {} arrays, bit for bit'.format(
+              card, len(trunk), n_floats, len(tensors) - len(trunk), write_s,
+              seconds['convert_tf_resnet'], seconds['convert_torch_resnet'],
+              len(tf_npz)))
+    shutil.rmtree(work, ignore_errors=True)
+    return npz, counts, dict(arrays=len(tf_npz), floats=int(n_floats),
+                             write_s=write_s, convert_s=seconds)
+
+
+def check_towers_hold_npz(config, npz):
+    """The production net built from ``config`` on the card with the
+    trainer's loader (``pretrained.maybe_load_pretrained``): both towers'
+    parameters and statistics equal the NPZ's arrays."""
+    net, _ = monopsr.create_net_from_config(
+        config.model_config, config.dataset_config, device='cuda', seed=0)
+    tx, _, use_ema, _ = opt_lib.build_optimizer(
+        config.train_config.to_dict(), clip_gradient_norm=1.0)
+    state = TrainState.create(net, tx, use_ema=use_ema)
+    pretrained.maybe_load_pretrained(state, config.model_config)
+    checked = 0
+    with np.load(npz) as data:
+        for key in data.files:
+            parts = key.split('/')
+            tree = {}
+            node = tree.setdefault('params', {})
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = data[key]
+            (name, want), = weights.from_flax_variables(tree).items()
+            for tower in ('tower_crop', 'tower_full'):
+                full = 'backbone.{}.{}'.format(tower, name)
+                got = state.params.get(full, state.batch_stats.get(full))
+                if got is None or not torch.equal(got.detach().cpu(), want):
+                    fail('pretrained: {} does not hold the NPZ\'s {}'.format(
+                        full, key))
+                checked += 1
+    del net, state
+    torch.cuda.empty_cache()
+    return checked
+
+
+def pretrained_training(card, npz, counts):
+    """The training CLI on the production YAML (the fixture, phase 9's
+    substitutions) from the converted trunk: 2 steps with summary images,
+    the step-2 profile and tower remat. Checks the loader's counts, both
+    towers against the NPZ, the grids, the trace, finite losses."""
+    path = production_yaml(PRETRAINED_LOOP_NAME, [
+        ('seed', '0', 1), ('max_iterations', '2', 1),
+        ('summary_interval', '1', 1),
+        ('checkpoint_interval', '2\n    profile_step: 2', 1),
+        ('pretrained_weights_name', "'{}'".format(TRUNK_NAME), 1),
+        ('summary_images', 'True', 1),
+        ('compute_dtype', "'bfloat16'\n    remat_towers: True", 1)])
+    config = config_lib.parse_yaml_config(path)
+    if not (config.model_config.remat_towers and config.summary_images and
+            config.train_config.profile_step == 2):
+        fail('pretrained training: the config lost its edits')
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lines, first_s, _ = run_training_cli(path)
+    wall_s = time.time() - t0
+    loaded = [re.match(r'\[pretrained\] loaded (\d+) param / (\d+) stat '
+                       r'arrays from (.+)$', line) for line in lines]
+    loaded = [m for m in loaded if m]
+    if len(loaded) != 1 or (int(loaded[0].group(1)),
+                            int(loaded[0].group(2))) != counts or \
+            os.path.abspath(loaded[0].group(3)) != os.path.abspath(npz):
+        fail('pretrained training: loader printed {}, want {} param / {} '
+             'stat arrays from {}'.format(
+                 [m.group(0) for m in loaded], counts[0], counts[1], npz))
+    records = [r for r in read_train_log(config) if 'total_loss' in r]
+    if [r['step'] for r in records] != [1, 2] or not all(
+            np.isfinite(v) for r in records for v in r.values()):
+        fail('pretrained training: logged {}'.format(records))
+    images = sorted(os.listdir(os.path.join(config.logdir, 'images')))
+    want = sorted('{}_features_for_{}.png'.format(step, part)
+                  for step in (1, 2) for part in ('map', 'box_3d'))
+    if images != want:
+        fail('pretrained training: images {}, want {}'.format(images, want))
+    grids = {name: image_io.read_png(os.path.join(config.logdir, 'images',
+                                                  name)).shape
+             for name in want}
+    trace_path = os.path.join(config.logdir, 'profile', 'train_step_2.json')
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel')
+    if not kernels:
+        fail('pretrained training: the step-2 trace holds no kernel')
+    checked = check_towers_hold_npz(config, npz)
+    ms = [1e3 / r['steps_per_sec'] for r in records]
+    print('pretrained training ({}): run_training, production YAML, '
+          'remat_towers True (unit), 2 steps from {}; loader: {} param / {} '
+          'stat arrays (2 x (conv + BN pairs), 2 x BN pairs); {} tower '
+          'tensors equal the NPZ after loading; losses finite (total {}); '
+          'grids {}; step-2 trace {} events, {} kernels; ms/step {}, {:.1f} '
+          's to the first step, {:.1f} s wall'.format(
+              card, os.path.basename(npz), counts[0], counts[1], checked,
+              [round(r['total_loss'], 4) for r in records], grids,
+              len(events), kernels, [round(x, 3) for x in ms], first_s,
+              wall_s))
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    return dict(loaded=list(counts), towers_checked=checked,
+                total_loss=[r['total_loss'] for r in records],
+                ms_per_step=ms, trace_kernels=kernels, wall_s=wall_s,
+                start_to_first_step_s=first_s)
+
+
+def remat_steps(seed, card):
+    """make_train_step at production width with the production loss,
+    Adam and the EMA, for each remat policy at train batches 1 and 8:
+    peak memory and ms/step over REMAT_STEPS timed steps after one
+    warm-up; 'unit' must peak below no remat at the widest batch. K1 and
+    K2 must not launch (no EMD loss, no val eval on this path)."""
+    report = {}
+    emd_ops.emd_distance.launches = 0
+    emd_ops.emd_cost_fused.launches = 0
+    for batch_size in REMAT_BATCHES:
+        batch = synthetic_batch(seed, production_config(), batch_size,
+                                (375, 1242), C.DEPTH_PAD_SHAPE)
+        for policy in REMAT_POLICIES:
+            cfg = dataclasses.replace(production_config(),
+                                      remat_towers=policy is not None,
+                                      remat_policy=policy or 'unit')
+            net = monopsr.create_net(cfg, device='cuda', seed=seed)
+            tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+            step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx,
+                                           use_ema, decay, device='cuda')
+            state = trainer.create_train_state(net, tx, use_ema)
+            state, _ = step(state, batch)            # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            if not all(bool(torch.isfinite(v)) for v in losses.values()):
+                fail('remat {} batch {}: losses not finite'.format(
+                    policy, batch_size))
+            name = '{} batch {}'.format(policy or 'none', batch_size)
+            report[name] = dict(ms=ms, peak_gb=peak_gb,
+                                total_loss=float(losses['total_loss']))
+            print('remat {} ({}): {:.3f} ms/step over {} steps, peak {:.3f} '
+                  'GB, total_loss {:.4f}'.format(
+                      name, card, ms, REMAT_STEPS, peak_gb,
+                      float(losses['total_loss'])))
+            del net, state, step
+            torch.cuda.empty_cache()
+    k1, k2 = emd_ops.emd_cost_fused.launches, emd_ops.emd_distance.launches
+    if k1 or k2:
+        fail('remat steps: emd_cost_fused {} and emd_loss {} launches, '
+             'want none'.format(k1, k2))
+    widest = REMAT_BATCHES[-1]
+    unit, none = (report['{} batch {}'.format(p, widest)]['peak_gb']
+                  for p in ('unit', 'none'))
+    if not unit < none:
+        fail('remat: unit peaks at {:.3f} GB at batch {}, no remat at '
+             '{:.3f} GB'.format(unit, widest, none))
+    return report, (k1, k2)
+
+
+def remat_gradients(seed, card):
+    """One float32 production train step at batch 2 per remat policy,
+    twice without remat, with cuDNN deterministic and PyTorch's
+    deterministic algorithms (set here and reset after; an op without a
+    deterministic version is named, not refused): the gradients the step
+    hands the optimizer, remat against no remat, bitwise; where they are
+    not equal, the remat runs' deviation (L2 over all leaves, and the
+    worst leaf's largest |diff| over its largest gradient) must not
+    exceed the two no-remat runs' own."""
+    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
+    batch = synthetic_batch(seed + 5, cfg32, 2, (375, 1242),
+                            C.DEPTH_PAD_SHAPE)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    grads = {}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            for run in ('none', 'none again', 'unit', 'conv_outs'):
+                policy = run if run in ('unit', 'conv_outs') else None
+                cfg = dataclasses.replace(
+                    cfg32, remat_towers=policy is not None,
+                    remat_policy=policy or 'unit')
+                net = monopsr.create_net(cfg, device='cuda', seed=seed)
+                tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+                tx = GradientRecorder(tx)
+                step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx,
+                                               use_ema, decay, device='cuda')
+                state = trainer.create_train_state(net, tx, use_ema)
+                step(state, batch)
+                grads[run] = tx.grads[0]
+                del net, state, step
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.backends.cudnn.benchmark = before[1]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+    nondeterministic = sorted({str(w.message).split(' does not have a '
+                                                     'deterministic')[0]
+                               for w in caught
+                               if 'deterministic' in str(w.message)})
+
+    def deviation(got, want):
+        l2 = (sum(float(((got[k] - w) ** 2).sum()) for k, w in want.items()) /
+              sum(float((w ** 2).sum()) for w in want.values())) ** 0.5
+        leaf = max(float((got[k] - w).abs().max()) /
+                   max(float(w.abs().max()), 1e-30) for k, w in want.items())
+        return l2, leaf
+
+    base = grads['none']
+    yardstick = deviation(grads['none again'], base)
+    report = {'none_vs_none': yardstick, 'nondeterministic_ops':
+              nondeterministic}
+    for run in ('unit', 'conv_outs'):
+        equal = all(torch.equal(grads[run][k], w) for k, w in base.items())
+        dev = (0.0, 0.0) if equal else deviation(grads[run], base)
+        report[run] = dict(bitwise_equal=equal, l2=dev[0], worst_leaf=dev[1])
+        if not equal and (dev[0] > yardstick[0] or dev[1] > yardstick[1]):
+            fail('remat gradients: {} deviates (L2 {:.3e}, worst leaf '
+                 '{:.3e}) from no remat; two no-remat runs (L2 {:.3e}, '
+                 'worst leaf {:.3e})'.format(run, dev[0], dev[1],
+                                             yardstick[0], yardstick[1]))
+
+    def said(run):
+        r = report[run]
+        return ('bitwise equal' if r['bitwise_equal'] else
+                'L2 {:.3e}, worst leaf {:.3e}'.format(r['l2'],
+                                                      r['worst_leaf']))
+
+    print('remat gradients ({}): float32, batch 2, deterministic cuDNN and '
+          'algorithms, {} parameter tensors: unit {}, conv_outs {}; two '
+          'no-remat runs: {}; ops without a deterministic version: {}'
+          .format(card, len(base), said('unit'), said('conv_outs'),
+                  'bitwise equal' if yardstick == (0.0, 0.0) else
+                  'L2 {:.3e}, worst leaf {:.3e}'.format(*yardstick),
+                  nondeterministic or 'none'))
+    return report
+
+
+def pretrained_remat_phase(seed, card):
+    """Phase 16: the converter chain, training from its trunk with remat,
+    then remat at production width; data/pretrained/<TRUNK_NAME>.npz and
+    the run's outputs are removed at the end."""
+    t0 = time.time()
+    npz = os.path.join(monopsr_torch.data_dir(), 'pretrained',
+                       TRUNK_NAME + '.npz')
+    try:
+        npz, counts, converters = converter_chain(card)
+        training = pretrained_training(card, npz, counts)
+    finally:
+        if os.path.exists(npz):
+            os.remove(npz)
+        try:
+            os.rmdir(os.path.dirname(npz))     # only if nothing else is there
+        except OSError:
+            pass
+    steps, launches = remat_steps(seed, card)
+    grads = remat_gradients(seed, card)
+    seconds = time.time() - t0
+    print('pretrained trunk and remat: {:.1f} s'.format(seconds))
+    return dict(converters=converters, training=training, remat=steps,
+                gradients=grads, launches=list(launches), seconds=seconds)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -2283,6 +2754,7 @@ def main():
     finally:
         for path in gate_dirs:
             shutil.rmtree(path, ignore_errors=True)
+    pretrained_report = pretrained_remat_phase(args.seed, card)
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -2302,6 +2774,7 @@ def main():
         'launches_data_parallel_per_rank':
             dp_report['eval']['launches_per_rank'],
         'launches_accuracy_gate': gate_report['k1_launches'],
+        'launches_pretrained_remat': pretrained_report['launches'][0],
         'max_abs_err': prod['max_abs_err'],
         'max_rel_err': prod['max_rel_err'],
         'main_path_clouds_max_rel_err': report['clouds_max_rel_err'],
@@ -2325,6 +2798,7 @@ def main():
         'launches_eval_cli': 0,
         'launches_data_parallel_per_rank': [0] * DP_RANKS,
         'launches_accuracy_gate': 0,
+        'launches_pretrained_remat': pretrained_report['launches'][1],
         'max_abs_err': prod2['max_abs_err'],
         'max_rel_err': prod2['max_rel_err'],
         'accumulators_max_rel_err': prod2['acc_max_rel_err'],
@@ -2359,6 +2833,7 @@ def main():
     print('data preparation: ' + json.dumps(prep_report))
     print('data parallel: ' + json.dumps(dp_report))
     print('accuracy gate, short: ' + json.dumps(gate_report))
+    print('pretrained trunk and remat: ' + json.dumps(pretrained_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

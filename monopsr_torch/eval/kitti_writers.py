@@ -5,9 +5,9 @@ text rows (lwh -> hwl reorder, CRLF line endings, 3-decimal rounding,
 score-threshold filtering, an empty file for a sample without a kept
 detection), the avg/std/avg_abs/std_abs metrics CSV tables, and the
 timing statistics the evaluator prints. The files are byte-identical to
-the JAX package's for the same inputs (tests/test_torch_eval_host.py).
-The 2D-only writer, which only the offline conversion script calls, is
-not ported (ROADMAP M18).
+the JAX package's for the same inputs (tests/test_torch_eval_host.py,
+tests/test_torch_eval_tools.py). The 2D-only writer serves
+``tools/save_kitti_predictions --save_2d``.
 """
 
 import csv
@@ -80,6 +80,49 @@ def save_predictions_box_3d_in_kitti_format(score_threshold, dataset,
         np.savetxt(out_path, rows, newline='\r\n', fmt='%s')
 
     return kitti_dir, num_valid
+
+
+def save_predictions_box_2d_in_kitti_format(score_threshold, dataset,
+                                            predictions_base_dir,
+                                            predictions_box_2d_dir,
+                                            global_step):
+    """2D-only variant: KITTI rows from the (N, 7) box_2d txts, with the
+    3D fields -1000 placeholders and alpha -10, into the same
+    kitti_predictions_3d/<split>/<thr>/<step>/data/ tree."""
+    score_threshold = round(score_threshold, 3)
+    kitti_dir = os.path.join(
+        predictions_base_dir, 'kitti_predictions_3d',
+        dataset.data_split, str(score_threshold), str(global_step), 'data')
+    os.makedirs(kitti_dir, exist_ok=True)
+
+    for sample in dataset.sample_list:
+        sample_name = sample.name
+        out_path = os.path.join(kitti_dir, sample_name + '.txt')
+        pred_path = os.path.join(predictions_box_2d_dir,
+                                 sample_name + '.txt')
+        if not os.path.exists(pred_path):
+            np.savetxt(out_path, [])
+            continue
+
+        preds = np.loadtxt(pred_path).reshape(-1, 7)
+        boxes = preds[:, [1, 0, 3, 2]]
+        keep = preds[:, 5] >= score_threshold
+        preds, boxes = preds[keep], boxes[keep]
+        if len(preds) == 0:
+            np.savetxt(out_path, [])
+            continue
+
+        kitti = np.full([len(preds), 16], -1000.0)
+        kitti[:, 3] = -10.0
+        kitti[:, 4:8] = boxes
+        kitti[:, 15] = preds[:, 5]
+        kitti = np.round(kitti, 3)
+
+        obj_types = [dataset.classes[int(c)] for c in preds[:, 6]]
+        rows = np.column_stack([obj_types, kitti[:, 1:16]])
+        np.savetxt(out_path, rows, newline='\r\n', fmt='%s')
+
+    return kitti_dir
 
 
 def save_metrics(metrics_dir, global_step, data_split, metrics_dict):

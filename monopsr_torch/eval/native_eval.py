@@ -18,20 +18,27 @@ beside its source and forks one Python process per script. Here:
   append: a ``step N`` line, then the binary's standard output.
 
 The binary also writes its precision-recall curves as text under
-``<result_dir>/plot/``; the scripts' last step, PNG plots of those
-curves with matplotlib, is not ported (ROADMAP M18).
+``<result_dir>/plot/``. After each regime, as the scripts do, ``run``
+draws them with ``scripts/offline_eval/plot_pr_curves.py`` in a
+subprocess of this interpreter, best-effort (the scripts' ``|| true``):
+without matplotlib no PNG is written, the results files are the same,
+and one printed line says which it was.
 """
 
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 
 import monopsr_torch
 
 SOURCE = os.path.join(monopsr_torch.top_dir(), 'scripts', 'offline_eval',
                       'kitti_native_eval', 'evaluate_object_3d_offline.cpp')
+
+PLOT_SCRIPT = os.path.join(monopsr_torch.top_dir(), 'scripts',
+                           'offline_eval', 'plot_pr_curves.py')
 
 CXX_FLAGS = ('-O3', '-std=c++17')
 
@@ -82,13 +89,30 @@ def results_paths(pred_dir, config_name, score_threshold):
                 config_name, thr)))
 
 
+def plot_curves(result_dir, regime):
+    """Draws the curves of ``<result_dir>/plot/*.txt`` to PNGs beside
+    them with ``PLOT_SCRIPT``, best-effort: prints one line saying
+    whether plots were written, and never raises for the plotter's
+    failure (matplotlib may be missing)."""
+    proc = subprocess.run([sys.executable, PLOT_SCRIPT, result_dir],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+    if proc.returncode == 0:
+        print('PR-curve plots ({}): {}'.format(regime, proc.stdout.strip()))
+    else:
+        last = (proc.stderr.strip().splitlines() or [''])[-1]
+        print('PR-curve plots ({}): none written (plotter exited {}: {})'
+              .format(regime, proc.returncode, last))
+
+
 def run(binary, gt_dir, result_dir, global_step, results_files):
     """Evaluates the KITTI files under ``result_dir``/data against the
     labels in ``gt_dir``: the standard regime, then the low one, one
     process at a time (both write the same curve files). Each appends a
     ``step N`` line and the binary's output to its results file (one of
-    ``results_paths``) and prints them, then the seconds both took.
-    Raises RuntimeError if the binary exits non-zero."""
+    ``results_paths``) and prints them, then plots the curves
+    (``plot_curves``); then the seconds both took are printed. Raises
+    RuntimeError if the binary exits non-zero."""
     t0 = time.perf_counter()
     for extra, results_file in zip(([], ['low']), results_files):
         proc = subprocess.Popen([binary, gt_dir, result_dir] + extra,
@@ -101,5 +125,6 @@ def run(binary, gt_dir, result_dir, global_step, results_files):
         if proc.returncode != 0:
             raise RuntimeError('native KITTI evaluator exited {} on {}'
                                .format(proc.returncode, result_dir))
+        plot_curves(result_dir, 'low' if extra else 'standard')
     print('native eval of step {}: {:.3f} s'.format(
         int(global_step), time.perf_counter() - t0))

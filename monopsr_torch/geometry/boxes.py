@@ -1,16 +1,18 @@
-"""box_3d format helpers, host side (numpy): [x, y, z, l, w, h, ry].
+"""box_3d format helpers: [x, y, z, l, w, h, ry].
 
 Counterpart of ``monopsr_tpu/geometry/boxes.py``: the numpy functions,
 which the evaluator's prediction formatting runs (corners, their
 projection, the 2D box reorder and ``project_to_image_space``, whose
 scalar rules the vectorised ``eval/predictions.score_boxes`` follows) and
-the instance-mask tool runs (``points_in_box_3d``).
+the instance-mask tool runs (``points_in_box_3d``), and the batched
+corners in torch (``compute_box_3d_corners_batch``).
 
 Corner convention: 8 corners with y in {0 (bottom), -h (top)}, i.e. the
 box_3d origin is the bottom-face centre.
 """
 
 import numpy as np
+import torch
 
 from monopsr_torch.geometry import projection
 
@@ -60,6 +62,31 @@ def np_project_corners_batch(corners, cam_p):
     pts = (np.einsum('ij,njk->nik', cam_p[:, :3], corners) +
            cam_p[:, 3][None, :, None])
     return pts[:, 0:2] / pts[:, 2:3]
+
+
+def compute_box_3d_corners_batch(boxes_3d):
+    """(N, 7) boxes_3d tensor -> (N, 3, 8) corners, in its dtype."""
+    tx, ty, tz = boxes_3d[:, 0], boxes_3d[:, 1], boxes_3d[:, 2]
+    l, w, h, ry = (boxes_3d[:, i] for i in range(3, 7))
+    half_l, half_w = l / 2.0, w / 2.0
+
+    def signs(values):
+        return torch.tensor(values, dtype=boxes_3d.dtype,
+                            device=boxes_3d.device)
+
+    sign_x = signs([1, 1, -1, -1, 1, 1, -1, -1])
+    sign_y = signs([0, 0, 0, 0, -1, -1, -1, -1])
+    sign_z = signs([1, -1, -1, 1, 1, -1, -1, 1])
+
+    x_c = half_l[:, None] * sign_x[None, :]
+    y_c = h[:, None] * sign_y[None, :]
+    z_c = half_w[:, None] * sign_z[None, :]
+
+    c, s = torch.cos(ry)[:, None], torch.sin(ry)[:, None]
+    xr = c * x_c + s * z_c + tx[:, None]
+    yr = y_c + ty[:, None]
+    zr = -s * x_c + c * z_c + tz[:, None]
+    return torch.stack([xr, yr, zr], dim=1)
 
 
 def points_in_box_3d(box_3d, points):

@@ -124,13 +124,18 @@ class Resnet101_4xSquash(nn.Module):
     """
 
     def __init__(self, map_roi_size=(48, 48), output_stride=4,
-                 resnet='resnet101', dtype=torch.bfloat16):
+                 resnet='resnet101', dtype=torch.bfloat16,
+                 remat_towers=False, remat_policy='unit'):
         super().__init__()
         spec = RESNET_SPECS[resnet]
         self.map_roi_size = tuple(map_roi_size)
         self.dtype = dtype
-        self.tower_crop = ResNetV1(spec, output_stride, dtype=dtype)
-        self.tower_full = ResNetV1(spec, output_stride, dtype=dtype)
+        self.tower_crop = ResNetV1(spec, output_stride, dtype=dtype,
+                                   remat=remat_towers,
+                                   remat_policy=remat_policy)
+        self.tower_full = ResNetV1(spec, output_stride, dtype=dtype,
+                                   remat=remat_towers,
+                                   remat_policy=remat_policy)
         tower_ch = self.tower_crop.out_channels
         self.squash_1x1 = Conv2d(2 * tower_ch, 512, 1)
         self.map_decoder = MapDecoder(512, map_roi_size, dtype)

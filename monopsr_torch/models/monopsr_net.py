@@ -50,10 +50,11 @@ class NetConfig:
     output_stride: int = 4
     resnet: str = 'resnet101'
     compute_dtype: str = 'bfloat16'
-    # TPU-specific knobs of the JAX package, accepted and ignored here
-    # (phase-space atrous convs are numerically plain dilated convs;
-    # rematerialization is a training-memory trade)
+    # A TPU layout knob of the JAX package, accepted and ignored here:
+    # phase-space atrous convs are numerically plain dilated convs
     use_phase_space: bool = True
+    # Rematerialize each tower bottleneck on the backward pass ('unit' or
+    # 'conv_outs', models/resnet.py): less activation memory, same values
     remat_towers: bool = False
     remat_policy: str = 'unit'
     # Output types
@@ -202,7 +203,8 @@ class MonoPSRNet(nn.Module):
         nb = cfg.num_alpha_bins
         self.backbone = Resnet101_4xSquash(
             map_roi_size=cfg.map_roi_size, output_stride=cfg.output_stride,
-            resnet=cfg.resnet, dtype=cfg.torch_dtype)
+            resnet=cfg.resnet, dtype=cfg.torch_dtype,
+            remat_towers=cfg.remat_towers, remat_policy=cfg.remat_policy)
 
         # Map heads
         self.inst_xyz_map_local = Conv2d(128, 3, 3, padding=1)

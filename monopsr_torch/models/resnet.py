@@ -20,16 +20,28 @@ The JAX package runs atrous units in "phase space" (space-to-batch), a
 TPU layout trick that is numerically identical to a dilated conv; this
 port uses the plain dilated conv.
 
+Rematerialization (``remat``, JAX ``nn.remat`` over each bottleneck)
+trades recompute for the activations the backward pass keeps, with the
+JAX package's two policies: ``'unit'`` keeps each unit's input and
+re-runs the whole unit (``torch.utils.checkpoint``); ``'conv_outs'``
+keeps each conv's output as well and recomputes only the frozen-BN
+affine, relu and residual add (a selective checkpoint that saves the
+convolutions' outputs, as JAX's ``save_only_these_names('conv_out')``),
+so no conv is re-run. Any other policy string behaves as ``'unit'``.
+Values and gradients do not change; with gradients off nothing changes.
+
 Public layout is NHWC (as in JAX); the stack runs NCHW inside. Convs run
 in the compute dtype with float32 parameters: each conv casts its input
 and kernel to the compute dtype, as flax does with ``dtype=bfloat16``.
 """
 
+import functools
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 # (num_units, bottleneck_depth) per block; output depth = 4x bottleneck
 RESNET_SPECS = {
@@ -127,6 +139,18 @@ class Bottleneck(nn.Module):
         return F.relu(shortcut + y)
 
 
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    """The 'conv_outs' policy: keep what a convolution returns, recompute
+    every other op of the unit."""
+    if op is torch.ops.aten.convolution.default:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_CONV_OUTS_CONTEXT = functools.partial(
+    torch_checkpoint.create_selective_checkpoint_contexts, _save_conv_outputs)
+
+
 class ResNetV1(nn.Module):
     """ResNet v1 trunk up to (and including) block ``num_blocks``.
 
@@ -136,13 +160,19 @@ class ResNetV1(nn.Module):
         num_blocks: how many blocks to run (3 taps block3).
         dtype: compute dtype (params stay float32).
         in_channels: input channels (3 for RGB).
+        remat: rematerialize each bottleneck on the backward pass.
+        remat_policy: 'unit' (keep unit inputs, re-run the unit) or
+            'conv_outs' (keep conv outputs too, re-run no conv); any
+            other string behaves as 'unit'.
     """
 
     def __init__(self, spec: Sequence = RESNET_SPECS['resnet101'],
                  output_stride=4, num_blocks=3, dtype=torch.bfloat16,
-                 in_channels=3):
+                 in_channels=3, remat=False, remat_policy='unit'):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
+        self.remat_policy = remat_policy
         self.conv1 = conv_same(in_channels, 64, 7, 2, 1)
         self.conv1_bn = FrozenBatchNorm(64)
 
@@ -176,8 +206,17 @@ class ResNetV1(nn.Module):
         x = F.relu(self.conv1_bn(self.conv1(x)))
         x = max_pool_same(x, 3, 2)
         for name in self.unit_names:
-            x = getattr(self, name)(x)
+            x = self._run_unit(getattr(self, name), x)
         return x
+
+    def _run_unit(self, unit, x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return unit(x)
+        if self.remat_policy == 'conv_outs':
+            return torch_checkpoint.checkpoint(
+                unit, x, use_reentrant=False,
+                context_fn=_CONV_OUTS_CONTEXT)
+        return torch_checkpoint.checkpoint(unit, x, use_reentrant=False)
 
     def forward(self, x):
         """(N, H, W, C) -> (N, H/s, W/s, out_channels), compute dtype."""

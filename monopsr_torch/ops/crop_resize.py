@@ -96,6 +96,41 @@ def crop_and_resize_bilinear(image, boxes_norm, crop_size):
     return out[0] if single else out
 
 
+def crop_and_resize_nearest(image, boxes_2d, roi_size):
+    """Crop (pixel boxes, rounded) + nearest resize with align_corners=True.
+
+    Equivalent to ``map[y1:y2, x1:x2]`` followed by TF1's
+    ``resize_nearest_neighbor(roi_size, align_corners=True)`` (scale =
+    (in - 1) / (out - 1), src = round(i * scale), half to even as
+    ``jnp.round``), as one batched gather.
+
+    Args:
+        image: (H, W) or (H, W, C) map.
+        boxes_2d: (N, 4) pixel boxes [y1, x1, y2, x2] (rounded here);
+            a box of no height or width crops a single pixel.
+        roi_size: (roi_h, roi_w) output size.
+
+    Returns:
+        (N, roi_h, roi_w[, C]) crops, in the image's dtype.
+    """
+    roi_h, roi_w = roi_size
+    height, width = image.shape[0], image.shape[1]
+    boxes_r = torch.round(boxes_2d).to(torch.int32)
+    y1, x1, y2, x2 = boxes_r.unbind(-1)
+    ch = torch.clamp(y2 - y1, min=1)
+    cw = torch.clamp(x2 - x1, min=1)
+
+    iy = torch.arange(roi_h, dtype=torch.float32, device=image.device)
+    ix = torch.arange(roi_w, dtype=torch.float32, device=image.device)
+    scale_y = (ch - 1).float() / max(roi_h - 1, 1)
+    scale_x = (cw - 1).float() / max(roi_w - 1, 1)
+    src_y = y1[:, None] + torch.round(iy * scale_y[:, None]).to(torch.int32)
+    src_x = x1[:, None] + torch.round(ix * scale_x[:, None]).to(torch.int32)
+    src_y = src_y.clamp(0, height - 1).long()
+    src_x = src_x.clamp(0, width - 1).long()
+    return image[src_y[:, :, None], src_x[:, None, :]]
+
+
 def _align_corners_grid(out_n, in_n, device):
     coords = linspace(0.0, in_n - 1, out_n, device)
     lo = torch.floor(coords)

@@ -1,5 +1,6 @@
-"""Data-preparation tools: depth maps from velodyne scans
-(``gen_depth_maps``, completed on the card) and instance masks from the
-depth maps and the labels (``gen_instance_masks``, on the host). Each
-runs as ``python -m monopsr_torch.tools.<tool> --data_split_dir ...``.
+"""Offline tools, each run as ``python -m monopsr_torch.tools.<tool>``:
+data preparation (``gen_depth_maps``, completed on the card, and
+``gen_instance_masks``, on the host), the pretrained-trunk converters
+(``convert_tf_resnet``, ``convert_torch_resnet``, with the zoo layout in
+``odapi_manifest``) and ``save_kitti_predictions``.
 """

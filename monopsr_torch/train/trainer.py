@@ -22,8 +22,12 @@ for ``TrainState.create``). Where the JAX loop leans on a TPU mechanism:
   batch is ``world_size * batch_size`` images, each rank's loader reads
   its rows, the gradients are averaged over ranks before the clip, the
   decoder's batch norms use global statistics, and only rank 0 writes
-  logs and checkpoints;
-- ``summary_images`` raises NotImplementedError (ROADMAP M18).
+  logs and checkpoints.
+
+With ``summary_images``, each summary step writes grids of the
+backbone's two outputs for the batch's first sample under
+``<logdir>/images/`` (``utils.summary_images``); ``profile_step: N``
+traces step N with ``utils.profiling.trace``.
 """
 
 import json
@@ -41,7 +45,8 @@ from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import pretrained
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
-from monopsr_torch.utils import image_io, tb_events
+from monopsr_torch.utils import image_io, profiling, summary_images
+from monopsr_torch.utils import tb_events
 
 # Batch keys shipped to the device for training
 DEVICE_KEYS = (
@@ -295,26 +300,43 @@ def _log_device_memory(logger, step, device):
     if device.type == 'cuda':
         index = device.index if device.index is not None else \
             torch.cuda.current_device()
+        stats = profiling.device_memory_stats()['cuda:{}'.format(index)]
         logger.log(step, {'bytes_in_use_cuda_{}'.format(index):
-                          torch.cuda.memory_allocated(index)})
+                          stats.get('allocated_bytes.all.current', 0)})
 
 
-def _profiled_step(train_step, state, batch, logdir, step, device):
-    """One train step under torch.profiler; the trace goes to
+def _profiled_step(train_step, state, batch, logdir, step):
+    """One train step under ``profiling.trace``; the trace goes to
     <logdir>/profile/train_step_<step>.json."""
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if device.type == 'cuda':
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profiling.trace(os.path.join(logdir, 'profile'),
+                         name='train_step_{}'.format(step)):
         state, losses = train_step(state, batch)
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-    out_dir = os.path.join(logdir, 'profile')
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        out_dir, 'train_step_{}.json'.format(step)))
     return state, losses
+
+
+def _save_feature_grids(net, batch, logdir, step, device):
+    """Grids of the backbone's two outputs (map features, box features)
+    for the batch's first sample, the net in eval mode with its current
+    parameters (JAX captures them with ``train=False``):
+    <logdir>/images/<step>_features_for_{map,box_3d}.png."""
+    sample = {k: v[:1] for k, v in batch.items()
+              if isinstance(v, np.ndarray)}
+    captured = []
+    hook = net.backbone.register_forward_hook(
+        lambda module, args, out: captured.append(out))
+    net.eval()
+    try:
+        with torch.no_grad():
+            net(**monopsr.net_inputs_from_batch(
+                evaluator.batch_to_device(sample, device)))
+    finally:
+        hook.remove()
+        net.train()
+    maps_f, box_f = captured[0]
+    summary_images.save_feature_maps(logdir, step, 'features_for_map',
+                                     maps_f[0].float().cpu().numpy())
+    summary_images.save_feature_maps(logdir, step, 'features_for_box_3d',
+                                     box_f[0].float().cpu().numpy())
 
 
 def train(config, dataset, max_steps=None, log_every=None, device=None):
@@ -345,10 +367,7 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     dp_lib.require_ranks(train_config.get('data_parallel', 1), device,
                          'data_parallel')
     world, is_main = dp_lib.world_size(), dp_lib.is_main()
-    if bool(config.get('summary_images', False)):
-        raise NotImplementedError(
-            'summary_images needs a PNG writer, not ported yet '
-            '(ROADMAP M18)')
+    summary_images_on = bool(config.get('summary_images', False))
 
     net, cfg = monopsr.create_net_from_config(model_config, dataset_config,
                                               device=device, seed=0)
@@ -407,8 +426,7 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
             if (profile_step is not None and step + 1 == int(profile_step)
                     and is_main):
                 state, losses = _profiled_step(train_step, state, batch,
-                                               config.logdir, step + 1,
-                                               device)
+                                               config.logdir, step + 1)
             else:
                 state, losses = train_step(state, batch)
             step += 1
@@ -426,6 +444,9 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
                 logger.log(step, scalars)
                 print('step {:6d}  total {:.4f}  {:.2f} steps/s'.format(
                     step, scalars['total_loss'], scalars['steps_per_sec']))
+                if summary_images_on:
+                    _save_feature_grids(net, batch, config.logdir, step,
+                                        device)
 
             if is_main and (step % checkpoint_interval == 0 or
                             step == max_iterations):

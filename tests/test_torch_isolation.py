@@ -10,10 +10,25 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml',
+            'sklearn', 'matplotlib', 'monopsr_tpu')
+
+# Modules added with the converters, remat, the trainer's hooks, the
+# evaluation tools, the drawing helpers, the demos and the M15 tail
+_LATER_MODULES = (
+    'tools.convert_tf_resnet', 'tools.convert_torch_resnet',
+    'tools.odapi_manifest', 'tools.save_kitti_predictions',
+    'utils.profiling', 'utils.summary_images', 'utils.demo_utils',
+    'visualization.vis_utils', 'demos.view_kitti_sample_2d',
+    'demos.show_jittered_boxes_2d', 'demos.view_instance_masks',
+    'core_utils.distance_metrics', 'core_utils.format_checker',
+    'core_utils.label_cluster_utils', 'core_utils.instance_metrics',
+    'geometry.planes')
+
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
-for name in ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml',
-             'monopsr_tpu'):
+BLOCKED = {blocked!r}
+for name in BLOCKED:
     sys.modules[name] = None          # any import of these raises
 import monopsr_torch
 names = ['monopsr_torch'] + [
@@ -21,30 +36,62 @@ names = ['monopsr_torch'] + [
                                           'monopsr_torch.')]
 for name in names:
     importlib.import_module(name)
-assert {'monopsr_torch.parallel.data_parallel',
-        'monopsr_torch.experiments.accuracy_gate'} <= set(names), names
+want = {{'monopsr_torch.' + m for m in {later!r}}}
+assert {{'monopsr_torch.parallel.data_parallel',
+         'monopsr_torch.experiments.accuracy_gate'}} | want <= set(names), \
+    sorted(want - set(names))
 import chip_smoke
-leaked = sorted(m for m in sys.modules if m.split('.')[0] in (
-    'jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml', 'monopsr_tpu')
-    and sys.modules[m] is not None)
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED
+                and sys.modules[m] is not None)
 print(len(names), leaked)
-"""
+""".format(blocked=_BLOCKED, later=_LATER_MODULES)
+
+# Each CLI of the converters, the tools and the demos parses its flags
+# with the same modules blocked
+_CLI_HELP = r"""
+import contextlib, importlib, io, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+for module in {clis!r}:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        try:
+            importlib.import_module('monopsr_torch.' + module).main(
+                ['--help'])
+        except SystemExit as e:
+            assert e.code == 0, (module, e.code)
+    assert out.getvalue().startswith('usage:'), module
+print('ok')
+""".format(blocked=_BLOCKED, clis=(
+    'tools.convert_tf_resnet', 'tools.convert_torch_resnet',
+    'tools.save_kitti_predictions', 'demos.view_kitti_sample_2d',
+    'demos.show_jittered_boxes_2d', 'demos.view_instance_masks'))
 
 
 def test_package_imports_without_jax_or_reference():
     """Every module of the port, the train modules, the config reader,
     the KITTI dataset layer, the evaluator's host side, the three CLIs,
     the data-preparation tools (monopsr_torch.tools), the data-parallel
-    ranks (monopsr_torch.parallel) and the accuracy gate
-    (monopsr_torch.experiments.accuracy_gate) included (and
-    chip_smoke.py), imports with jax, flax, optax, cv2, PIL,
-    yaml and monopsr_tpu made unimportable."""
+    ranks (monopsr_torch.parallel), the accuracy gate
+    (monopsr_torch.experiments.accuracy_gate), the converters, the
+    trainer's hooks, the drawing helpers, the demos and the M15 tail
+    included (and chip_smoke.py), imports with jax, flax, optax, cv2,
+    PIL, yaml, scikit-learn, matplotlib and monopsr_tpu made
+    unimportable (the drawing helpers and demos import matplotlib when
+    they draw)."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     count, leaked = out.stdout.split(' ', 1)
-    assert int(count) >= 61
+    assert int(count) >= 61 + len(_LATER_MODULES)
     assert leaked.strip() == '[]'
+
+
+def test_tool_and_demo_clis_parse_their_flags_without_jax():
+    out = subprocess.run([sys.executable, '-c', _CLI_HELP], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'ok'
 
 
 def test_sources_name_no_jax():

@@ -326,16 +326,17 @@ def test_loop_refuses_unported_options(tmp_path, monkeypatch):
     # devices counted here)
     from monopsr_torch.utils import device as device_lib
     monkeypatch.setattr(device_lib, 'visible_device_count', lambda d: 2)
-    for key, value, error, match in (
-            ('data_parallel', 2, ValueError, 'data_parallel.launch'),
-            ('summary_images', True, NotImplementedError, 'M18')):
-        pconfig = ConfigObj(_raw_config(tmp_path, 1))
-        if key == 'summary_images':
-            pconfig.summary_images = value
-        else:
-            setattr(pconfig.train_config, key, value)
-        with pytest.raises(error, match=match):
-            trainer.train(pconfig, None, device='cpu')
+    pconfig = ConfigObj(_raw_config(tmp_path, 1))
+    pconfig.train_config.data_parallel = 2
+    with pytest.raises(ValueError, match='data_parallel.launch'):
+        trainer.train(pconfig, None, device='cpu')
+    # summary_images is ported (tests/test_torch_summary_profiling.py):
+    # the loop passes its option checks and stops only at the missing
+    # dataset
+    pconfig = ConfigObj(_raw_config(tmp_path, 1))
+    pconfig.summary_images = True
+    with pytest.raises(AttributeError, match='num_samples'):
+        trainer.train(pconfig, None, device='cpu')
 
 
 def tiny_yaml(text, fixture, max_iterations):
