@@ -118,6 +118,19 @@ Phases, any failure of which exits non-zero:
    gradients must equal no remat's bit for bit or deviate no more than
    two no-remat runs do.
    data/pretrained/chip_smoke_trunk.npz and the run's outputs are removed.
+17. steps_per_dispatch: (a) the production train step at full width in
+   float32 at batch 2 under deterministic algorithms, 4 eager steps
+   against 2 dispatches of 2 through the CUDA graph of the step
+   (``train.step_graph``) from the same seeded state and batches: every
+   leaf of the state bit for bit or within rtol 2e-5 / atol 1e-6, with
+   the production loss and with the 'emd' loss (K2 captured once and
+   replayed); the count replaced instead of updated in place must fail
+   it. (b) bfloat16 at train batches 1 and 8 per remat policy: eager
+   K = 1 against the graph at K = 4, ms/step, peak GB, capture seconds,
+   the device-busy share of a graphed dispatch. (c) the training CLI
+   with ``steps_per_dispatch: 4`` on phase 9's config for 6 steps: logs
+   at 4, 5, 6, checkpoints at 4 and 6; loop ms/step against phase 9's.
+   (d) ``profile_step`` forces one step per dispatch (tiny config).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -154,7 +167,7 @@ from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.parallel import data_parallel
 from monopsr_torch.tools import convert_tf_resnet, odapi_manifest
 from monopsr_torch.train import optimizer as opt_lib
-from monopsr_torch.train import pretrained, trainer
+from monopsr_torch.train import pretrained, step_graph, trainer
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io
@@ -369,7 +382,8 @@ def emd_bound_ms(b, n, m, sm_count, sm_clock_mhz, fp32_per_element,
 
 def profile_step(step, batch, top=12):
     """Device time by kernel over one step, from torch.profiler's CUPTI
-    trace, and the device's busy share of the step's wall time."""
+    trace, and the device's busy share of the step's wall time; returns
+    (wall ms, busy ms), busy None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -388,7 +402,7 @@ def profile_step(step, batch, top=12):
             rows.append((us / 1e3, avg.count, avg.key))
     if not rows:
         print('  profile: the trace holds no device time (not measured)')
-        return
+        return wall_ms, None
     busy = sum(r[0] for r in rows)
     print('  profile (one step under the profiler): wall {:.3f} ms, device '
           'busy {:.3f} ms ({:.1%}), {} kernel names'.format(
@@ -404,6 +418,7 @@ def profile_step(step, batch, top=12):
             groups.items(), key=lambda kv: -kv[1][0])))
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         print('    {:9.3f} ms {:5d}x  {}'.format(ms, count, name[:110]))
+    return wall_ms, busy
 
 
 # --------------------------------------------------------------------------
@@ -2691,6 +2706,391 @@ def pretrained_remat_phase(seed, card):
                 gradients=grads, launches=list(launches), seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# Phase 17: steps_per_dispatch, a CUDA graph of the train step
+# --------------------------------------------------------------------------
+
+GRAPH_K = 4             # steps per dispatch of the graphed timing and CLI
+GRAPH_DISPATCHES = 3    # timed dispatches after the first
+GRAPH_RTOL, GRAPH_ATOL = 2e-5, 1e-6   # tests/test_steps_per_dispatch.py:44
+
+
+class ReplacedCount:
+    """Planted fault: the optimizer's ``count`` is replaced by a new tensor
+    before each update (which then advances the new one), where the port
+    updates the state's own tensors in place. Eager steps read the dict
+    anew and stay right; a CUDA graph replays its captured clone of the
+    count it started from, so the count never advances past capture."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state):
+        state['count'] = state['count'].clone()
+        return self.tx.update(grads, state)
+
+
+def state_leaves(state):
+    """{name: tensor} of every tensor of a TrainState (parameters, EMA,
+    optimizer moments and counters, batch statistics), cloned."""
+    out = {}
+    for part in ('params', 'ema_params', 'batch_stats'):
+        for key, value in (getattr(state, part) or {}).items():
+            out['{}/{}'.format(part, key)] = value.detach().clone()
+    for key, value in state.opt_state.items():
+        if isinstance(value, dict):
+            for name, tensor in value.items():
+                out['opt/{}/{}'.format(key, name)] = tensor.clone()
+        else:
+            out['opt/' + key] = value.clone()
+    return out
+
+
+def leaves_against(got, want):
+    """(bitwise equal, the worst leaf and its max |diff| beyond
+    GRAPH_ATOL + GRAPH_RTOL |want| as a share of GRAPH_ATOL (<= 0 within
+    the bound), the number of leaves)."""
+    equal = all(torch.equal(got[k], w) for k, w in want.items())
+    worst, worst_key = float('-inf'), None
+    for key, w in want.items():
+        g, w = got[key].double(), w.double()
+        excess = float(((g - w).abs() - GRAPH_RTOL * w.abs()).max()) \
+            if w.numel() else 0.0
+        if not bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()):
+            excess = float('inf')
+        if excess > worst:
+            worst, worst_key = excess, key
+    return equal, worst_key, worst / GRAPH_ATOL, len(want)
+
+
+def graph_against_eager(cfg, loss_config, batches, seed, k, planted=False):
+    """``len(batches)`` eager train steps from a seeded net against
+    dispatches of ``k`` batches through ``step_graph.GraphedTrainStep``
+    from the same net and state, under cuDNN-deterministic and PyTorch's
+    deterministic algorithms (set here and reset after). ``planted``
+    runs the graphed steps with the optimizer's count replaced instead of
+    updated (``ReplacedCount``). Returns a dict: bitwise equality, the
+    worst leaf against the JAX test's rtol 2e-5 / atol 1e-6, the last
+    step's losses against each other, K2's launches (eager, captured,
+    replays) and the capture seconds."""
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    runs = {}
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            for mode in ('eager', 'graph'):
+                net = monopsr.create_net(cfg, device='cuda', seed=seed)
+                tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+                if planted and mode == 'graph':
+                    tx = ReplacedCount(tx)
+                step = trainer.make_train_step(net, cfg, loss_config, tx,
+                                               use_ema, decay, device='cuda')
+                state = trainer.create_train_state(net, tx, use_ema)
+                emd_ops.emd_distance.launches = 0
+                if mode == 'eager':
+                    for batch in batches:
+                        state, losses = step(state, batch)
+                    graphed, captured = None, 0
+                else:
+                    graphed = step_graph.GraphedTrainStep(step, 'cuda')
+                    captured = {}
+                    capture = graphed._capture
+
+                    def counted_capture(state, capture=capture,
+                                        captured=captured):
+                        k2 = emd_ops.emd_distance.launches
+                        capture(state)
+                        captured['k2'] = emd_ops.emd_distance.launches - k2
+                    graphed._capture = counted_capture
+                    for i in range(0, len(batches), k):
+                        state, losses = graphed(state, batches[i:i + k])
+                torch.cuda.synchronize()
+                runs[mode] = dict(
+                    leaves=state_leaves(state), step=state.step,
+                    losses={k: v.detach().clone() for k, v in losses.items()},
+                    k2=emd_ops.emd_distance.launches,
+                    captured=captured.get('k2', 0) if graphed else 0,
+                    replays=graphed.replays if graphed else 0,
+                    capture_s=graphed.capture_seconds if graphed else None)
+                del net, state, step, graphed
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.backends.cudnn.benchmark = before[1]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+    eager, graph = runs['eager'], runs['graph']
+    equal, worst_key, worst, n = leaves_against(graph['leaves'],
+                                                eager['leaves'])
+    losses_equal = all(torch.equal(graph['losses'][k], v)
+                       for k, v in eager['losses'].items())
+    out = dict(bitwise_equal=equal, worst_leaf=worst_key,
+               worst_excess_of_atol=worst, leaves=n,
+               within_bound=worst <= 0.0, losses_equal=losses_equal,
+               steps=[eager['step'], graph['step']],
+               count=[int(eager['leaves']['opt/count']),
+                      int(graph['leaves']['opt/count'])],
+               total_loss=[float(eager['losses']['total_loss']),
+                           float(graph['losses']['total_loss'])],
+               k2_eager=eager['k2'], k2_graph_python=graph['k2'],
+               k2_captured=graph['captured'], replays=graph['replays'],
+               capture_s=graph['capture_s'])
+    del runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_equality_phase(seed, card):
+    """Phase 17(a): the production train step at full width in float32 at
+    batch 2, 4 eager steps against 2 dispatches of 2 through the CUDA
+    graph from the same seeded state and the same 4 synthetic batches:
+    every leaf bit for bit, or within rtol 2e-5 and atol 1e-6; with the
+    production loss and with the 'emd' loss, whose K2 launch must be
+    captured (once) and so run in every replay; the planted out-of-place
+    count must fail the same check."""
+    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
+    batches = [synthetic_batch(seed + 30 + i, cfg32, 2, (375, 1242),
+                               C.DEPTH_PAD_SHAPE) for i in range(4)]
+    report = {}
+    for name, loss_config, planted in (
+            ('production loss', LOSS_CONFIG, False),
+            ('emd loss', EMD_LOSS_CONFIG, False),
+            ('production loss, planted replaced count', LOSS_CONFIG, True)):
+        r = graph_against_eager(cfg32, loss_config, batches, seed, 2,
+                                planted=planted)
+        report[name] = r
+        ok = r['bitwise_equal'] or r['within_bound']
+        print('graph vs eager, {} ({}; float32, batch 2, 4 eager steps vs '
+              '2 dispatches of 2, deterministic algorithms): {} over {} '
+              'leaves{}; steps {}, count {}, total_loss eager {:.6f} graph '
+              '{:.6f} (last step {}); K2 launches: eager {}, in the graph '
+              'run {} by Python (the warm-up step and the capture), {} '
+              'captured x {} replays; capture {:.3f} s'.format(
+                  name, card,
+                  'bit for bit' if r['bitwise_equal'] else
+                  'worst leaf {} {:+.3e} of atol beyond the bound'.format(
+                      r['worst_leaf'], r['worst_excess_of_atol']),
+                  r['leaves'], '' if ok or planted else ' (FAILS)',
+                  r['steps'], r['count'], r['total_loss'][0],
+                  r['total_loss'][1],
+                  'equal' if r['losses_equal'] else 'differs',
+                  r['k2_eager'], r['k2_graph_python'], r['k2_captured'],
+                  r['replays'], r['capture_s']))
+        if r['steps'] != [4, 4]:
+            fail('graph vs eager, {}: steps {}'.format(name, r['steps']))
+        want_k2 = 1 if loss_config is EMD_LOSS_CONFIG else 0
+        if (r['k2_eager'] != 4 * want_k2 or r['k2_captured'] != want_k2 or
+                r['k2_graph_python'] != 2 * want_k2 or r['replays'] != 3):
+            fail('graph vs eager, {}: K2 launches eager {}, graph {}, '
+                 'captured {}, replays {}'.format(
+                     name, r['k2_eager'], r['k2_graph_python'],
+                     r['k2_captured'], r['replays']))
+        if planted:
+            if ok:
+                fail('graph vs eager: the planted replaced count passed')
+        elif not ok:
+            fail('graph vs eager, {}: worst leaf {} beyond rtol {} atol {}'
+                 .format(name, r['worst_leaf'], GRAPH_RTOL, GRAPH_ATOL))
+        elif not r['losses_equal'] and abs(
+                r['total_loss'][0] - r['total_loss'][1]) > \
+                GRAPH_ATOL + GRAPH_RTOL * abs(r['total_loss'][0]):
+            fail('graph vs eager, {}: last losses {}'.format(
+                name, r['total_loss']))
+    return report
+
+
+def graph_timing_phase(seed, card):
+    """Phase 17(b): the production train step (bfloat16, production loss,
+    Adam + EMA) at train batches 1 and 8, per remat policy: eager K = 1
+    (one warm-up step, REMAT_STEPS timed) against the graph at K =
+    GRAPH_K on the same net and state (a first dispatch holding the
+    warm-up step and the capture, then GRAPH_DISPATCHES timed ones):
+    ms/step, peak GB of each, capture seconds, and the device-busy share
+    of one graphed dispatch under the profiler."""
+    report = {}
+    for batch_size in REMAT_BATCHES:
+        batch = synthetic_batch(seed, production_config(), batch_size,
+                                (375, 1242), C.DEPTH_PAD_SHAPE)
+        for policy in REMAT_POLICIES:
+            cfg = dataclasses.replace(production_config(),
+                                      remat_towers=policy is not None,
+                                      remat_policy=policy or 'unit')
+            net = monopsr.create_net(cfg, device='cuda', seed=seed)
+            tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+            step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx,
+                                           use_ema, decay, device='cuda')
+            state = trainer.create_train_state(net, tx, use_ema)
+            state, _ = step(state, batch)            # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(REMAT_STEPS):
+                state, losses = step(state, batch)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
+            eager_gb = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+            graphed = step_graph.GraphedTrainStep(step, 'cuda')
+            dispatch = [batch] * GRAPH_K
+            state, _ = graphed(state, dispatch)      # warm-up and capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GRAPH_DISPATCHES):
+                state, losses = graphed(state, dispatch)
+            torch.cuda.synchronize()
+            graph_ms = ((time.perf_counter() - t0) /
+                        (GRAPH_DISPATCHES * GRAPH_K) * 1e3)
+            graph_gb = torch.cuda.max_memory_allocated() / 1e9
+            if not all(bool(torch.isfinite(v)) for v in losses.values()):
+                fail('graph timing {} batch {}: losses not finite'.format(
+                    policy, batch_size))
+            wall, busy = profile_step(lambda b: graphed(state, b), dispatch,
+                                      top=4)
+            name = '{} batch {}'.format(policy or 'none', batch_size)
+            report[name] = dict(
+                eager_ms=eager_ms, graph_ms=graph_ms,
+                speedup=eager_ms / graph_ms, eager_peak_gb=eager_gb,
+                graph_peak_gb=graph_gb,
+                capture_s=graphed.capture_seconds,
+                dispatch_wall_ms=wall, dispatch_busy_ms=busy,
+                busy_share=busy / wall if busy else None)
+            print('graph timing, remat {} ({}): eager K=1 {:.3f} ms/step, '
+                  'peak {:.3f} GB; graph K={} {:.3f} ms/step ({:.2f}x), '
+                  'peak {:.3f} GB, capture {:.3f} s; one graphed dispatch '
+                  'under the profiler: wall {:.3f} ms, device busy {}'
+                  .format(name, card, eager_ms, eager_gb, GRAPH_K,
+                          graph_ms, eager_ms / graph_ms, graph_gb,
+                          graphed.capture_seconds, wall,
+                          'not measured (no device time in the trace)'
+                          if not busy else '{:.3f} ms ({:.1%})'.format(
+                              busy, busy / wall)))
+            del net, state, step, graphed, losses
+            torch.cuda.empty_cache()
+    return report
+
+
+GRAPH_LOOP_NAME = 'chip_smoke_train_k4'
+
+
+def graph_loop_phase(card, loop_report):
+    """Phase 17(c): the training CLI on phase 9's fixture config with
+    ``steps_per_dispatch: GRAPH_K`` and 6 steps: one dispatch of 4, then a
+    tail of 2 single steps; logs at 4, 5 and 6 and checkpoints at 4 and 6
+    (the JAX loop's crossing rule, summary every step, checkpoint every
+    2). Loop ms/step from the log against phase 9's at K = 1."""
+    path = production_yaml(GRAPH_LOOP_NAME, [
+        ('seed', '0', 1), ('max_iterations', '6', 1),
+        ('summary_interval', '1', 1),
+        ('checkpoint_interval',
+         '2\n    steps_per_dispatch: {}'.format(GRAPH_K), 1)])
+    config = config_lib.parse_yaml_config(path)
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        lines, start_s, _ = run_training_cli(path)
+        records = [r for r in read_train_log(config) if 'total_loss' in r]
+        steps = [r['step'] for r in records]
+        checkpoints = trainer.CheckpointManager(
+            config.checkpoint_dir).all_steps()
+    finally:
+        shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    if steps != [4, 5, 6] or checkpoints != [4, 6]:
+        fail('graph loop: logged steps {} and checkpoints {}, want [4, 5, '
+             '6] and [4, 6]'.format(steps, checkpoints))
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        fail('graph loop: a logged value is not finite: {}'.format(records))
+    ms = {r['step']: 1e3 / r['steps_per_sec'] for r in records}
+    report = dict(ms_per_step={k: round(v, 3) for k, v in ms.items()},
+                  k1_ms_per_step=loop_report['ms_per_step'],
+                  start_to_first_step_s=start_s,
+                  total_loss={r['step']: round(r['total_loss'], 4)
+                              for r in records})
+    print('graph loop (run_training CLI, steps_per_dispatch {}, 6 steps, '
+          'production width, fixture): logged {}, checkpoints {}; wall '
+          'ms/step from steps_per_sec {} (step 4: the dispatch of 4 with '
+          'the warm-up step and the capture; 5: a replay after the '
+          'checkpoint at 4; 6: a replay) against phase 9 at K = 1 {}; '
+          '{:.1f} s to the first step line; {}'.format(
+              GRAPH_K, steps, checkpoints, report['ms_per_step'],
+              loop_report['ms_per_step'], start_s, card))
+    return report
+
+
+def profile_forces_one_step(seed, card):
+    """Phase 17(d): with ``profile_step`` set, ``steps_per_dispatch: 4``
+    runs one step per dispatch (the JAX rule): the training loop in this
+    process on the card, on a tiny config over the fixture, 3 steps with
+    the step-2 trace; every step logged, no graph made."""
+    path = production_yaml('chip_smoke_profile_k', [
+        ('seed', '0', 1), ('num_boxes', '4', 1),
+        ('image_input_shape', '[48, 160]', 1),
+        ('resized_full_img_shape', '[24, 80]', 1),
+        ('img_roi_size', '[16, 16]', 1), ('map_roi_size', '[16, 16]', 1),
+        ('layer_sizes', '[16, 16]', 2),
+        ('compute_dtype', "'float32'\n    resnet: 'resnet_tiny'", 1),
+        ('max_iterations', '3', 1), ('summary_interval', '1', 1),
+        ('checkpoint_interval', '2\n    steps_per_dispatch: 4\n'
+         '    profile_step: 2', 1)])
+    config = config_lib.parse_yaml_config(path)
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    made = []
+    graphed_step = step_graph.GraphedTrainStep
+
+    def counted(*args, **kwargs):
+        made.append(1)
+        return graphed_step(*args, **kwargs)
+    step_graph.GraphedTrainStep = counted
+    try:
+        trainer.train(config, KittiDataset(config.dataset_config, 'train'),
+                      device='cuda')
+        steps = [r['step'] for r in read_train_log(config)
+                 if 'total_loss' in r]
+        traced = os.path.exists(os.path.join(config.logdir, 'profile',
+                                             'train_step_2.json'))
+    finally:
+        step_graph.GraphedTrainStep = graphed_step
+        shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    if (trainer.steps_per_dispatch(config.train_config) != 1 or
+            steps != [1, 2, 3] or made or not traced):
+        fail('profile_step with steps_per_dispatch 4: K {}, logged {}, '
+             'graphs made {}, trace {}'.format(
+                 trainer.steps_per_dispatch(config.train_config), steps,
+                 len(made), traced))
+    print('profile_step 2 with steps_per_dispatch 4 ({}): one step per '
+          'dispatch, logged {}, no graph, the step-2 trace written'.format(
+              card, steps))
+    return dict(logged=steps, graphs=len(made), traced=traced)
+
+
+def steps_per_dispatch_phase(seed, card, loop_report):
+    """Phase 17: (a) graph against eager, (b) timing, (c) the CLI at
+    K = GRAPH_K, (d) profile_step forces K = 1."""
+    t0 = time.time()
+    emd_ops.emd_cost_fused.launches = 0
+    equality = graph_equality_phase(seed, card)
+    timing = graph_timing_phase(seed, card)
+    loop = graph_loop_phase(card, loop_report)
+    profile = profile_forces_one_step(seed, card)
+    k1 = emd_ops.emd_cost_fused.launches
+    if k1:
+        fail('steps_per_dispatch: emd_cost_fused launched {} times, want '
+             'none (no val eval on this path)'.format(k1))
+    seconds = time.time() - t0
+    print('steps_per_dispatch: {:.1f} s'.format(seconds))
+    return dict(equality=equality, timing=timing, loop=loop,
+                profile=profile, k1_launches=k1, seconds=seconds)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -2755,6 +3155,8 @@ def main():
         for path in gate_dirs:
             shutil.rmtree(path, ignore_errors=True)
     pretrained_report = pretrained_remat_phase(args.seed, card)
+    graph_report = steps_per_dispatch_phase(args.seed, card, loop_report)
+    emd_graph = graph_report['equality']['emd loss']
 
     b, n, m = prod['shape']
     bound_ms, bound_by = emd_bound_ms(b, n, m, props.multi_processor_count,
@@ -2775,6 +3177,7 @@ def main():
             dp_report['eval']['launches_per_rank'],
         'launches_accuracy_gate': gate_report['k1_launches'],
         'launches_pretrained_remat': pretrained_report['launches'][0],
+        'launches_steps_per_dispatch': graph_report['k1_launches'],
         'max_abs_err': prod['max_abs_err'],
         'max_rel_err': prod['max_rel_err'],
         'main_path_clouds_max_rel_err': report['clouds_max_rel_err'],
@@ -2799,6 +3202,14 @@ def main():
         'launches_data_parallel_per_rank': [0] * DP_RANKS,
         'launches_accuracy_gate': 0,
         'launches_pretrained_remat': pretrained_report['launches'][1],
+        'launches_graph': emd_graph['k2_captured'] * emd_graph['replays'],
+        'launches_graph_counted_as': (
+            'phase 17(a), emd loss: {} launch captured x {} replays (a '
+            'captured launch runs in every replay; the Python counter counts '
+            'it once, at capture), besides {} eager launch of the warm-up '
+            'step'.format(emd_graph['k2_captured'], emd_graph['replays'],
+                          emd_graph['k2_graph_python'] -
+                          emd_graph['k2_captured'])),
         'max_abs_err': prod2['max_abs_err'],
         'max_rel_err': prod2['max_rel_err'],
         'accumulators_max_rel_err': prod2['acc_max_rel_err'],
@@ -2834,6 +3245,7 @@ def main():
     print('data parallel: ' + json.dumps(dp_report))
     print('accuracy gate, short: ' + json.dumps(gate_report))
     print('pretrained trunk and remat: ' + json.dumps(pretrained_report))
+    print('steps_per_dispatch: ' + json.dumps(graph_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from monopsr_torch.geometry import projection
+from monopsr_torch.utils.device import constant
 
 
 def np_compute_box_3d_corners(box_3d):
@@ -71,8 +72,7 @@ def compute_box_3d_corners_batch(boxes_3d):
     half_l, half_w = l / 2.0, w / 2.0
 
     def signs(values):
-        return torch.tensor(values, dtype=boxes_3d.dtype,
-                            device=boxes_3d.device)
+        return constant(values, boxes_3d.dtype, boxes_3d.device)
 
     sign_x = signs([1, 1, -1, -1, 1, 1, -1, -1])
     sign_y = signs([0, 0, 0, 0, -1, -1, -1, -1])

@@ -8,12 +8,13 @@ table (index 0, background, maps to 1.0).
 import torch
 
 from monopsr_torch.geometry import class_stats
+from monopsr_torch.utils.device import constant
 
 
 def _mean_table(mean_dict, classes, device):
     """(num_classes + 1,) lookup table indexed by 1-based class index."""
-    return torch.tensor([1.0] + [mean_dict[c] for c in classes],
-                        dtype=torch.float32, device=device)
+    return constant([1.0] + [mean_dict[c] for c in classes], torch.float32,
+                    device)
 
 
 def _normalize(values, class_indices, classes, mean_dict):

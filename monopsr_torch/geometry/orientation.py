@@ -1,15 +1,19 @@
-"""Discrete-continuous orientation encoding (alpha bins + residuals), host side.
+"""Discrete-continuous orientation encoding (alpha bins + residuals).
 
-Counterpart of the numpy encoder and decoder of
-``monopsr_tpu/geometry/orientation.py``: the dataset layer encodes each
+Counterpart of ``monopsr_tpu/geometry/orientation.py``: the numpy
+encoder and decoder run on the host (the dataset layer encodes each
 sample's alphas, the evaluator's prediction formatting decodes the
-predicted bin and residual. Bin centres start
+predicted bin and residual); the torch decoder and the angle-vector
+conversions take tensors on any device. Bin centres start
 at 0.0 and step by 2*pi/num_bins; the residual for the best bin is the
 shifted-angle remainder, and residuals for all bins are wrapped with
 atan2.
 """
 
+import math
+
 import numpy as np
+import torch
 
 
 def np_wrap_to_pi(angles):
@@ -83,3 +87,22 @@ def np_angle_bin_to_orientation(angle_bin, residual, num_bins):
     if np.ndim(angle) == 0:
         return float(angle)
     return angle
+
+
+def angle_bin_to_orientation(angle_bin, residual, num_bins):
+    """Tensor decode of (bin, residual) to orientations in [-pi, pi]."""
+    two_pi = 2.0 * math.pi
+    angle = angle_bin * (two_pi / num_bins) + residual
+    angle = torch.where(angle < -math.pi, angle + two_pi, angle)
+    return torch.where(angle > math.pi, angle - two_pi, angle)
+
+
+def angle_vector_to_orientation(angle_vectors):
+    """(N, 2) [cos, sin] unit vectors -> (N,) angles."""
+    return torch.atan2(angle_vectors[:, 1], angle_vectors[:, 0])
+
+
+def orientation_to_angle_vector(orientations):
+    """(N,) angles -> (N, 2) [cos, sin] unit vectors."""
+    return torch.stack([torch.cos(orientations), torch.sin(orientations)],
+                       dim=1)

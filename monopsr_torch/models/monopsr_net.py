@@ -29,6 +29,7 @@ from monopsr_torch.geometry import feature_normalization as fn
 from monopsr_torch.models.backbone import Resnet101_4xSquash
 from monopsr_torch.models.resnet import Conv2d, FrozenBatchNorm
 from monopsr_torch.ops import crop_resize
+from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils.grids import linspace
 
 
@@ -141,8 +142,9 @@ def _box_feature_concat(boxes_2d, view_angs, class_indices, cam_p,
     cu = cam_p[:, 0, 2][:, None, None]
     cv = cam_p[:, 1, 2][:, None, None]
     box_ij = boxes_2d - torch.cat([cv, cu, cv, cu], dim=-1)
-    half = boxes_2d.new_tensor([image_shape[0] / 2.0, image_shape[1] / 2.0,
-                                image_shape[0] / 2.0, image_shape[1] / 2.0])
+    half = device_lib.constant([image_shape[0] / 2.0, image_shape[1] / 2.0,
+                                image_shape[0] / 2.0, image_shape[1] / 2.0],
+                               boxes_2d.dtype, boxes_2d.device)
     box_ij_norm = (box_ij / half).reshape(b * n, 4)
 
     box_h_norm = ((boxes_2d[:, :, 2] - boxes_2d[:, :, 0]) /
@@ -153,9 +155,9 @@ def _box_feature_concat(boxes_2d, view_angs, class_indices, cam_p,
     classes = torch.arange(num_classes, device=boxes_2d.device)
     class_one_hot = (class_indices.reshape(b * n, 1) == classes).float()
 
-    cam_norm = cam_p.reshape(b, 12) / cam_p.new_tensor(
+    cam_norm = cam_p.reshape(b, 12) / device_lib.constant(
         [1000.0, 1.0, 1000.0, 100.0, 1.0, 1000.0, 1000.0, 1.0,
-         1.0, 1.0, 1.0, 1.0])
+         1.0, 1.0, 1.0, 1.0], cam_p.dtype, cam_p.device)
     cam_tiled = cam_norm.repeat_interleave(n, dim=0)      # (B*N, 12)
 
     return [box_ij_norm, box_h_norm, view_angs.reshape(b * n, 1),
@@ -297,7 +299,8 @@ class MonoPSRNet(nn.Module):
         means = (class_stats.KITTI_CHANNEL_MEANS
                  if cfg.mean_sub_type == 'kitti'
                  else class_stats.IMAGENET_CHANNEL_MEANS)
-        img = image.float() - image.new_tensor(means, dtype=torch.float32)
+        img = image.float() - device_lib.constant(means, torch.float32,
+                                                  image.device)
 
         # Per-box RGB crops and the resized full images
         rgb_crops = flat(crop_resize.crop_and_resize_bilinear(

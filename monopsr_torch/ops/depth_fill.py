@@ -225,6 +225,20 @@ def fill_in_multiscale(depth_map, max_depth=100.0, extrapolate=False,
     return torch.where(result > 0.1, max_depth - result, result)
 
 
+def fill_in_batch(depth_maps, max_depth=100.0, extrapolate=False,
+                  blur_type='bilateral', device=None):
+    """Multi-image completion: (B, H, W) -> (B, H, W), each map completed
+    as ``fill_in_multiscale`` completes it alone (JAX vmaps that function;
+    here it takes the stack directly). Raises unless the maps are a
+    (B, H, W) stack."""
+    if len(np.shape(depth_maps)) != 3:
+        raise ValueError('fill_in_batch takes (B, H, W) maps, got shape '
+                         '{}'.format(tuple(np.shape(depth_maps))))
+    return fill_in_multiscale(depth_maps, max_depth=max_depth,
+                              extrapolate=extrapolate, blur_type=blur_type,
+                              device=device)
+
+
 def cv2_gaussian_kernel_5():
     """cv2.getGaussianKernel(5, 0) outer product (sigma auto rule)."""
     k1 = np.array([0.0625, 0.25, 0.375, 0.25, 0.0625], np.float64)

@@ -12,16 +12,33 @@ as in the YAML:
                    'adam_optimizer': {'learning_rate_type': ...}},
      'optimizer_mu_dtype': None, 'skip_nonfinite_updates': True}
 
-The optimizer is functional, like an optax GradientTransformation:
-``init(params)`` returns the state and ``update(grads, state)`` returns
-(updates, new state); params, grads and updates are {name: tensor}
-dicts. The arithmetic runs as ``torch._foreach_*`` ops over all the
-tensors at once (a few launches per operation, not one per tensor).
-Each step reads three numbers on the host (whether every gradient is
-finite, the global norm, the update count): the clip and the skip of a
-non-finite step are host decisions, and the learning rate and Adam's
-bias corrections are float32 numbers computed there, as optax computes
-them on the device.
+The optimizer is functional in form, like an optax
+GradientTransformation: ``init(params)`` returns the state and
+``update(grads, state)`` returns (updates, state); params, grads and
+updates are {name: tensor} dicts. Unlike optax, ``update`` writes the
+new state into the tensors of the state it is given (``_foreach_*_``,
+``copy_``) and returns that same dict: a CUDA graph of the train step
+replays its kernels on the tensors it captured, so a state held in new
+tensors would never advance under replay. The arithmetic runs as
+``torch._foreach_*`` ops over all the tensors at once (a few launches
+per operation, not one per tensor).
+
+No step reads a number on the host. Whether the gradients are finite,
+their global norm, the update count, the learning rate and Adam's bias
+corrections are float32 or int32 tensors on the parameters' device, as
+optax computes them on its device; the clip and the skip of a
+non-finite step are selections between device scalars:
+
+- the clip divides by the norm and multiplies by the maximum, or by 1
+  and 1 where the norm is under the maximum (optax's ``(g / norm) *
+  max`` where it clips, ``g`` exactly where it does not);
+- a non-finite step that is skipped (``skip_nonfinite_updates``) runs
+  the update on zero gradients, with every decay set to 1 and the
+  learning rate to 0: the moments keep their values and the updates are
+  0, as the JAX package's ``masked_apply_if_finite`` keeps the old state
+  and returns zeros. That equality needs a finite state; once a
+  non-finite update went through (after 50 skipped in a row), the
+  parameters are non-finite in both packages.
 
 A moment stored in ``optimizer_mu_dtype`` (bfloat16) is decayed as the
 JAX package's jitted step decays it: the decay rounded to bfloat16
@@ -50,54 +67,56 @@ _DTYPES = {None: None, 'float32': torch.float32, 'bfloat16': torch.bfloat16,
 
 
 def _safe_increment(count):
-    """count + 1, saturating at the int32 maximum (optax.safe_increment)."""
-    return min(count + 1, _INT32_MAX)
+    """count + 1, saturating at the int32 maximum (optax.safe_increment),
+    on count's device."""
+    return torch.where(count < _INT32_MAX, count + 1, count)
+
+
+def _f32(value, like):
+    """A float32 scalar tensor on ``like``'s device (a fill, no copy from
+    the host)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def build_learning_rate(opt_config):
-    """Schedule: update count (updates applied so far) -> learning rate,
-    a float32 value. 'constant' or 'exponential_decay':
-    init * rate ** (count / steps), the exponent floored with
-    ``staircase``, and init at count <= 0 (optax.exponential_decay)."""
+    """Schedule: update count (updates applied so far: an int, or an int
+    tensor) -> learning rate, a float32 scalar tensor on the count's
+    device. 'constant' or 'exponential_decay': init * rate ** (count /
+    steps), the exponent floored with ``staircase``, and init at count
+    <= 0 (optax.exponential_decay), each operation in float32."""
     lr_type = opt_config['learning_rate_type']
-    f32 = np.float32
+
+    def as_tensor(count):
+        return count if torch.is_tensor(count) else torch.tensor(
+            count, dtype=torch.int32)
 
     if lr_type == 'constant':
-        value = float(f32(opt_config['learning_rate']))
-        return lambda count: value
+        value = float(np.float32(opt_config['learning_rate']))
+        return lambda count: _f32(value, as_tensor(count))
 
     if lr_type == 'exponential_decay':
-        init = f32(opt_config['initial_learning_rate'])
-        steps = f32(opt_config['decay_steps'])
-        rate = f32(opt_config['decay_factor'])
+        init = float(np.float32(opt_config['initial_learning_rate']))
+        steps = float(np.float32(opt_config['decay_steps']))
+        rate = float(np.float32(opt_config['decay_factor']))
         staircase = bool(opt_config.get('staircase', True))
 
         def exponential_decay(count):
-            count = int(count)
-            if count <= 0:
-                return float(init)
-            p = f32(count) / steps
+            count = as_tensor(count)
+            # a divisor on the device divides (a host scalar would
+            # multiply by its reciprocal on a CUDA device)
+            p = count.float() / _f32(steps, count)
             if staircase:
-                p = np.floor(p)
-            return float(init * rate ** p)
+                p = torch.floor(p)
+            return torch.where(count <= 0, init, init * torch.pow(rate, p))
         return exponential_decay
 
     raise ValueError('Invalid learning rate type: ' + str(lr_type))
 
 
-def _decayed(tensors, decay, dtype):
-    """decay * t for each stored moment t, in float32; a moment stored in
-    a narrower dtype takes the decay rounded to that dtype."""
-    if dtype is None or dtype == torch.float32:
-        return torch._foreach_mul(tensors, decay)
-    decay = float(torch.tensor(decay, dtype=dtype))
-    return torch._foreach_mul([t.float() for t in tensors], decay)
-
-
-def _stored(tensors, dtype):
-    if dtype is None or dtype == torch.float32:
-        return tensors
-    return [t.to(dtype) for t in tensors]
+def _where(keep, value, otherwise):
+    """``value``, or ``otherwise`` where the step is skipped; ``value``
+    itself when no step can be skipped (``keep`` None)."""
+    return value if keep is None else torch.where(keep, value, otherwise)
 
 
 class Optimizer:
@@ -116,6 +135,11 @@ class Optimizer:
         self.decay = decay
         self.eps = eps
         self.skip_nonfinite = skip_nonfinite
+        # the decay of a moment stored in mu_dtype, rounded to that dtype
+        stored_decay = {'adam': 0.9, 'momentum': momentum}.get(opt_type)
+        self._mu_decay = stored_decay
+        if mu_dtype not in (None, torch.float32) and stored_decay is not None:
+            self._mu_decay = float(torch.tensor(stored_decay, dtype=mu_dtype))
 
     def _moments(self):
         """State entries holding one tensor per parameter, with the dtype
@@ -145,90 +169,113 @@ class Optimizer:
             state['total_notfinite'] = zero.clone()
         return state
 
-    def _inner(self, names, g, state, count, norm):
-        """The clipped optimizer step on gradient list g: (updates list,
-        new inner state)."""
-        if self.clip_norm and not norm < self.clip_norm:
-            g = torch._foreach_mul(torch._foreach_div(g, norm),
-                                   self.clip_norm)
-        neg_lr = -self.schedule(count)
-        count_inc = _safe_increment(count)
-        new = {'count': torch.full_like(state['count'], count_inc)}
+    @staticmethod
+    def _decay(stored, decay, keep):
+        """decay * t for each stored moment t (1 * t on a skipped step),
+        in float32: in place for a float32 moment, which is returned; a
+        moment stored in a narrower dtype (its decay already rounded to
+        that dtype) yields float32 copies, which ``_store`` writes back."""
+        decay = _where(keep, decay, 1.0)
+        if stored[0].dtype == torch.float32:
+            torch._foreach_mul_(stored, decay)
+            return stored
+        return torch._foreach_mul([t.float() for t in stored], decay)
+
+    @staticmethod
+    def _store(stored, values):
+        """Writes float32 ``values`` into the stored moments (rounding to
+        their dtype); nothing to do when they are the same tensors."""
+        if values is not stored:
+            torch._foreach_copy_(stored, values)
+
+    def _inner(self, g, state, names, count_inc, keep):
+        """The optimizer step on the (clipped) gradient list g: updates
+        the moments in place and returns the updates list."""
+        neg_lr = _where(keep, -self.schedule(state['count']), 0.0)
         moment = {key: [state[key][n] for n in names]
                   for key in self._moments()}
 
         if self.opt_type == 'adam':
             b1, b2, eps = 0.9, 0.999, 1e-8
-            c = np.float32(count_inc)
-            correct1 = float(np.float32(1) - np.float32(b1) ** c)
-            correct2 = float(np.float32(1) - np.float32(b2) ** c)
-            mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
-                                    _decayed(moment['mu'], b1, self.mu_dtype))
-            nu = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
-                torch._foreach_mul(moment['nu'], b2))
-            denom = torch._foreach_add(
-                torch._foreach_sqrt(torch._foreach_div(nu, correct2)), eps)
-            updates = torch._foreach_mul(torch._foreach_div(
-                torch._foreach_div(mu, correct1), denom), neg_lr)
-            new['mu'] = _stored(mu, self.mu_dtype)
-            new['nu'] = nu
+            c = count_inc.float()
+            correct1 = 1.0 - torch.pow(b1, c)
+            correct2 = 1.0 - torch.pow(b2, c)
+            mu = self._decay(moment['mu'], self._mu_decay, keep)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
+            nu = self._decay(moment['nu'], b2, keep)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1 - b2))
+            denom = torch._foreach_div(nu, correct2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, eps)
+            updates = torch._foreach_div(mu, correct1)
+            torch._foreach_div_(updates, denom)
+            torch._foreach_mul_(updates, neg_lr)
+            self._store(moment['mu'], mu)
         elif self.opt_type == 'momentum':
-            trace = torch._foreach_add(
-                g, _decayed(moment['trace'], self.momentum, self.mu_dtype))
+            trace = self._decay(moment['trace'], self._mu_decay, keep)
+            torch._foreach_add_(trace, g)
             updates = torch._foreach_mul(trace, neg_lr)
-            new['trace'] = _stored(trace, self.mu_dtype)
+            self._store(moment['trace'], trace)
         elif self.opt_type == 'rmsprop':
-            nu = torch._foreach_add(
-                torch._foreach_mul(torch._foreach_mul(g, g), 1 - self.decay),
-                torch._foreach_mul(moment['nu'], self.decay))
-            scale = [torch.rsqrt(v) for v in torch._foreach_add(nu, self.eps)]
-            updates = torch._foreach_mul(torch._foreach_mul(scale, g), neg_lr)
+            nu = self._decay(moment['nu'], self.decay, keep)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(g, g), 1 - self.decay))
+            scale = torch._foreach_add(nu, self.eps)
+            for s in scale:
+                s.rsqrt_()
+            updates = torch._foreach_mul(scale, g)
+            torch._foreach_mul_(updates, neg_lr)
             if self.momentum is not None:
-                updates = torch._foreach_add(
-                    updates, torch._foreach_mul(moment['trace'],
-                                                self.momentum))
-                new['trace'] = updates
-            new['nu'] = nu
+                trace = self._decay(moment['trace'], self.momentum, keep)
+                torch._foreach_add_(trace, updates)
+                # the trace is the update; a skipped step returns zeros
+                updates = (trace if keep is None else
+                           torch._foreach_mul(trace, keep.float()))
         else:
             updates = torch._foreach_mul(g, neg_lr)
-        for key in self._moments():
-            new[key] = dict(zip(names, new[key]))
-        return updates, new
+        return updates
 
     def update(self, grads, state):
-        """(updates, new state). With skip_nonfinite, a step whose raw
-        gradients hold a NaN or inf yields zero updates and keeps the old
-        optimizer state (counters updated), unless more than
-        _MAX_CONSECUTIVE_ERRORS (50) such steps ran in a row, as the JAX
-        package's masked_apply_if_finite does."""
+        """(updates, state), ``state`` updated in place. With
+        skip_nonfinite, a step whose raw gradients hold a NaN or inf
+        yields zero updates and keeps the optimizer state (counters
+        updated), unless more than _MAX_CONSECUTIVE_ERRORS (50) such
+        steps ran in a row, as the JAX package's masked_apply_if_finite
+        does."""
         names = list(grads)
         g = [grads[n] for n in names]
-        finite, norm = True, None
+        keep = None
         if self.clip_norm or self.skip_nonfinite:
             flat = torch.cat([x.reshape(-1) for x in g])
-            finite, norm = torch.stack([
-                torch.isfinite(flat).all().float(),
-                torch.sqrt((flat * flat).sum())]).tolist()
-            finite = bool(finite)
-            del flat
-        count = int(state['count'])
-        new = dict(state)
+        if self.clip_norm:
+            norm = torch.sqrt((flat * flat).sum())
         if self.skip_nonfinite:
-            notfinite = (0 if finite else
-                         _safe_increment(int(state['notfinite_count'])))
-            new['notfinite_count'] = torch.full_like(
-                state['notfinite_count'], notfinite)
-            new['last_finite'] = torch.full_like(state['last_finite'], finite)
-            if not finite:
-                new['total_notfinite'] = torch.full_like(
-                    state['total_notfinite'],
-                    _safe_increment(int(state['total_notfinite'])))
-            if notfinite and notfinite <= _MAX_CONSECUTIVE_ERRORS:
-                return {n: torch.zeros_like(x) for n, x in grads.items()}, new
-        updates, inner = self._inner(names, g, state, count, norm)
-        new.update(inner)
-        return dict(zip(names, updates)), new
+            finite = torch.isfinite(flat).all()
+            notfinite = torch.where(
+                finite, 0, _safe_increment(state['notfinite_count']))
+            keep = finite | (notfinite > _MAX_CONSECUTIVE_ERRORS)
+            state['notfinite_count'].copy_(notfinite)
+            state['last_finite'].copy_(finite)
+            state['total_notfinite'].copy_(torch.where(
+                finite, state['total_notfinite'],
+                _safe_increment(state['total_notfinite'])))
+            # a skipped step runs on zero gradients (see the module)
+            flat.masked_fill_(~keep, 0.0)
+            g = [piece.view_as(x) for piece, x in zip(
+                flat.split([x.numel() for x in g]), g)]
+        if self.clip_norm:
+            # (g / norm) * max where the norm reaches max, else g / 1 * 1
+            unclipped = norm < self.clip_norm
+            if keep is not None:
+                unclipped = unclipped | ~keep
+            g = torch._foreach_div(g, torch.where(unclipped, 1.0, norm))
+            torch._foreach_mul_(g, torch.where(unclipped, 1.0,
+                                               float(self.clip_norm)))
+        count_inc = _safe_increment(state['count'])
+        updates = self._inner(g, state, names, count_inc, keep)
+        state['count'].copy_(_where(keep, count_inc, state['count']))
+        return dict(zip(names, updates)), state
 
 
 _TYPES = {'adam_optimizer': 'adam', 'momentum_optimizer': 'momentum',

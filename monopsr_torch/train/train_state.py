@@ -3,9 +3,11 @@
 Counterpart of ``monopsr_tpu/train/train_state.py``. ``params`` are the
 net's own ``nn.Parameter``s and ``batch_stats`` its buffers, keyed by
 state-dict name (one to one with flax's ``params`` and ``batch_stats``
-through ``monopsr_torch.weights``). ``apply_gradients`` updates them in
-place, where the JAX state returns new arrays: the net always holds the
-current weights, and no second copy of them is made.
+through ``monopsr_torch.weights``). ``apply_gradients`` updates them, the EMA
+and the optimizer state in place, where the JAX state returns new
+arrays: the net always holds the current weights, no second copy of
+them is made, and a CUDA graph of the train step advances the state it
+captured.
 """
 
 import torch
@@ -35,11 +37,14 @@ class TrainState:
 
     @torch.no_grad()
     def apply_gradients(self, grads, tx, ema_decay=None):
-        """One optimizer update from {name: gradient}. The EMA follows the
-        updated parameters as e * decay + p * (1 - decay), also after a
-        step the optimizer skipped as non-finite (as in the JAX state).
-        The batch stats were updated by the train-mode forward."""
-        updates, self.opt_state = tx.update(grads, self.opt_state)
+        """One optimizer update from {name: gradient}, every tensor of the
+        state written in place (the optimizer's too), with no number read
+        on the host: a CUDA graph of the step replays on the tensors it
+        captured (``train.step_graph``). The EMA follows the updated
+        parameters as e * decay + p * (1 - decay), also after a step the
+        optimizer skipped as non-finite (as in the JAX state). The batch
+        stats were updated by the train-mode forward."""
+        updates, _ = tx.update(grads, self.opt_state)
         names = list(self.params)
         params = [self.params[n] for n in names]
         torch._foreach_add_(params, [updates[n] for n in names])

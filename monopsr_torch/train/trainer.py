@@ -12,9 +12,16 @@ for ``TrainState.create``). Where the JAX loop leans on a TPU mechanism:
 
 - checkpoints are ``torch.save`` files in place of Orbax, one directory
   per step under ``checkpoint_dir`` as Orbax lays them out;
-- ``steps_per_dispatch`` (K steps in one device program) has no
-  counterpart: steps run one by one, and the log is the JAX loop's at
-  K = 1;
+- ``steps_per_dispatch`` K > 1 (JAX: K steps in one device program, a
+  ``lax.scan``) keeps the JAX loop's rules: a full dispatch takes K
+  batches and K steps, logs and checkpoints where a step crossed an
+  interval, logs its last step's losses and draws the summary images
+  from its last batch; a tail shorter than K runs single steps; K is 1
+  when ``profile_step`` is set. On one CUDA device the steps are replays
+  of a CUDA graph of the train step (``train.step_graph``); on the CPU,
+  and under data-parallel ranks (whose all-reduces a graph would have
+  to capture), a dispatch runs its K steps eagerly, in order, and the
+  ranks say so;
 - ``data_parallel`` (clamped to the visible cards, as JAX clamps its
   mesh) counts processes, not mesh devices: the loop runs in each rank
   of a process group that ``parallel.data_parallel.launch`` starts (the
@@ -42,7 +49,7 @@ from monopsr_torch.eval import evaluator
 from monopsr_torch.models import monopsr
 from monopsr_torch.parallel import data_parallel as dp_lib
 from monopsr_torch.train import optimizer as opt_lib
-from monopsr_torch.train import pretrained
+from monopsr_torch.train import pretrained, step_graph
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io, profiling, summary_images
@@ -229,21 +236,24 @@ def _same_keys(what, got, want):
             what))
 
 
-def _to_device(tree, device):
-    """Fresh copies of a nested dict of tensors on ``device``."""
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device, copy=True) if torch.is_tensor(tree) else tree
+def _copy_into(target, saved, what):
+    """Copies a nested dict of tensors into ``target``'s tensors."""
+    _same_keys(what, saved, target)
+    for key, value in target.items():
+        if isinstance(value, dict):
+            _copy_into(value, saved[key], what)
+        else:
+            value.copy_(saved[key])
 
 
 def restore_checkpoint(manager, step, state):
     """Restores checkpoint ``step`` into ``state`` in place and returns
-    it: the parameters, batch stats and EMA are copied into, the
-    optimizer state replaced. The file is memory-mapped, so only what is
-    copied is read: a state whose ``opt_state`` is None (the evaluator's)
-    restores the weights and leaves the optimizer's moments, half the
-    file, unread."""
-    device = next(iter(state.params.values())).device
+    it: every tensor of the state (parameters, batch stats, EMA,
+    optimizer state) is copied into, so a CUDA graph captured over the
+    state reads the restored values. The file is memory-mapped, so only
+    what is copied is read: a state whose ``opt_state`` is None (the
+    evaluator's) restores the weights and leaves the optimizer's moments,
+    half the file, unread."""
     saved = torch.load(manager.path(step), map_location='cpu',
                        weights_only=True, mmap=True)
     parts = ('params', 'batch_stats', 'ema_params')
@@ -256,8 +266,9 @@ def restore_checkpoint(manager, step, state):
             target = getattr(state, part) or {}
             for key, value in target.items():
                 value.copy_(saved[part][key])
-    if state.opt_state is not None:
-        state.opt_state = _to_device(saved['opt_state'], device)
+        if state.opt_state is not None:
+            _copy_into(state.opt_state, saved['opt_state'],
+                       'optimizer state')
     state.step = int(saved['step'])
     return state
 
@@ -339,6 +350,24 @@ def _save_feature_grids(net, batch, logdir, step, device):
                                      box_f[0].float().cpu().numpy())
 
 
+def steps_per_dispatch(train_config):
+    """The JAX loop's K: ``max(1, int(steps_per_dispatch or 1))``, and 1
+    when ``profile_step`` is set, so that the trace brackets one step."""
+    if train_config.get('profile_step') is not None:
+        return 1
+    return max(1, int(train_config.get('steps_per_dispatch', 1) or 1))
+
+
+def _eager_steps(train_step):
+    """A dispatch that takes its batches' steps one by one: (state,
+    batches) -> (state, losses of the last step)."""
+    def run(state, batches):
+        for batch in batches:
+            state, losses = train_step(state, batch)
+        return state, losses
+    return run
+
+
 def train(config, dataset, max_steps=None, log_every=None, device=None):
     """Full training loop driven by a parsed YAML config.
 
@@ -408,6 +437,15 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     checkpoint_interval = train_config.checkpoint_interval
     batch_size = max(1, int(train_config.get('batch_size', 1) or 1))
     profile_step = train_config.get('profile_step')
+    k_max = steps_per_dispatch(train_config)
+    if k_max > 1 and device.type == 'cuda' and world == 1:
+        dispatch = step_graph.GraphedTrainStep(train_step, device)
+    else:
+        dispatch = _eager_steps(train_step)
+        if k_max > 1 and world > 1 and is_main:
+            print('steps_per_dispatch {}: under {} data-parallel ranks the '
+                  'steps of a dispatch run eagerly (a CUDA graph of the '
+                  'step would capture its all-reduces)'.format(k_max, world))
 
     from monopsr_torch.train.input_pipeline import PrefetchingLoader
     loader = PrefetchingLoader(
@@ -422,19 +460,31 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
         step = start_step
         last_log_step = start_step
         while step < max_iterations:
-            batch = loader.get_batch()
-            if (profile_step is not None and step + 1 == int(profile_step)
-                    and is_main):
-                state, losses = _profiled_step(train_step, state, batch,
-                                               config.logdir, step + 1)
+            k = min(k_max, max_iterations - step)
+            if k_max > 1 and k == k_max:
+                batches = [loader.get_batch() for _ in range(k)]
+                state, losses = dispatch(state, batches)
+                batch = batches[-1]       # the summary images' batch
+                prev, step = step, step + k
+                crossed = step // summary_interval > prev // summary_interval
+                crossed_ckpt = (step // checkpoint_interval >
+                                prev // checkpoint_interval)
             else:
-                state, losses = train_step(state, batch)
-            step += 1
+                batch = loader.get_batch()
+                if (profile_step is not None and
+                        step + 1 == int(profile_step) and is_main):
+                    state, losses = _profiled_step(train_step, state, batch,
+                                                   config.logdir, step + 1)
+                else:
+                    state, losses = dispatch(state, [batch])
+                step += 1
+                crossed = step % summary_interval == 0
+                crossed_ckpt = step % checkpoint_interval == 0
 
-            if step % summary_interval == 0:
+            if crossed:
                 # the global batch's means (each rank's are over its rows)
                 dp_lib.mean_over_ranks(losses.values())
-            if step % summary_interval == 0 and is_main:
+            if crossed and is_main:
                 scalars = {k: float(v) for k, v in losses.items()}
                 scalars['learning_rate'] = float(schedule(step))
                 scalars['steps_per_sec'] = (
@@ -448,8 +498,9 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
                     _save_feature_grids(net, batch, config.logdir, step,
                                         device)
 
-            if is_main and (step % checkpoint_interval == 0 or
-                            step == max_iterations):
+            if is_main and (crossed_ckpt or step == max_iterations):
+                if device.type == 'cuda':
+                    torch.cuda.synchronize(device)
                 t0 = time.perf_counter()
                 save_checkpoint(manager, state, step)
                 print('checkpoint {}: {} bytes in {:.3f} s'.format(

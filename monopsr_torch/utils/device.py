@@ -10,9 +10,30 @@ rank's process) resolves its device here:
 on CUDA, float32 matmuls and convolutions run in float32, not in TF32,
 as the card-against-CPU checks run them. The bfloat16 compute of a
 config's towers and decoder is not affected.
+
+``constant`` keeps the small tensors of host numbers that the step's
+code builds (channel means, normalisers), one per device, so that a step
+run again copies nothing from host memory: a CUDA graph capture of the
+train step refuses a copy from pageable host memory.
 """
 
 import torch
+
+
+_CONSTANTS = {}
+
+
+def constant(values, dtype, device):
+    """A 1-D tensor of the host numbers ``values`` on ``device``, made at
+    the first call for these values, dtype and device and kept: later
+    calls return the same tensor, so no copy from the host runs (and a
+    CUDA graph can capture the caller). Read it; never write into it."""
+    key = (tuple(values), dtype, torch.device(device))
+    tensor = _CONSTANTS.get(key)
+    if tensor is None:
+        tensor = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype,
+                                                device=device)
+    return tensor
 
 
 def set_float32_precision():

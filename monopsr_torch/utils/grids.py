@@ -11,11 +11,12 @@ import torch
 
 
 def linspace(start, stop, num, device=None):
-    """float32 jnp.linspace(start, stop, num) with endpoint=True."""
+    """float32 jnp.linspace(start, stop, num) with endpoint=True. Made on
+    ``device`` without a copy from host memory (a fill for the end)."""
     if num == 1:
-        return torch.tensor([start], dtype=torch.float32, device=device)
+        return torch.full((1,), start, dtype=torch.float32, device=device)
     div = num - 1
     step = torch.arange(div, dtype=torch.float32, device=device) / div
     out = start * (1 - step) + stop * step
-    end = torch.tensor([stop], dtype=torch.float32, device=device)
+    end = torch.full((1,), stop, dtype=torch.float32, device=device)
     return torch.cat([out, end])

@@ -185,3 +185,23 @@ def test_runs_where_the_map_lies(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         depth_fill.fill_in_multiscale(torch.from_numpy(sparse),
                                       device='cuda')
+
+
+@pytest.mark.parametrize('blur_type, extrapolate', [('bilateral', False),
+                                                    ('gaussian', True)])
+def test_fill_in_batch_matches_jax(blur_type, extrapolate):
+    """``fill_in_batch`` against the JAX package's (its vmap of
+    fill_in_multiscale) on a stack of three maps of different depth
+    ranges, at ``_assert_pipeline_parity``'s bounds; a single map
+    raises."""
+    maps = np.stack([sparse_map(70), sparse_map(71, lo=2.0, hi=20.0),
+                     sparse_map(72, lo=30.0, hi=60.0)])
+    got = depth_fill.fill_in_batch(maps, extrapolate=extrapolate,
+                                   blur_type=blur_type, device='cpu').numpy()
+    want = np.asarray(jax_depth_fill.fill_in_batch(
+        maps, extrapolate=extrapolate, blur_type=blur_type))
+    assert got.shape == want.shape == maps.shape
+    for i in range(len(maps)):
+        _assert_pipeline_parity(got[i], want[i])
+    with pytest.raises(ValueError, match=r'\(B, H, W\)'):
+        depth_fill.fill_in_batch(maps[0], device='cpu')

@@ -185,3 +185,33 @@ def test_feature_normalization_matches_jax():
         _close(getattr(feature_normalization, name)(_t(vals), _t(idx), classes),
                getattr(jax_fn, name)(jnp.asarray(vals), jnp.asarray(idx),
                                      classes))
+
+
+def test_orientation_tensor_functions_match_jax():
+    """The torch decode of (bin, residual) and the angle-vector
+    conversions against the JAX package's jnp functions, float32, on
+    numpy-seeded inputs that cross both wrap-arounds of the decode: rtol
+    1e-6 (atan2, sin and cos may differ by an ulp), atol 1e-6."""
+    from monopsr_tpu.geometry import orientation as jax_orientation
+    from monopsr_torch.geometry import orientation
+    rng = np.random.RandomState(21)
+    bins = rng.randint(0, 12, 64).astype(np.float32)
+    residual = rng.uniform(-4.0, 4.0, 64).astype(np.float32)
+    angles = rng.uniform(-np.pi, np.pi, 64).astype(np.float32)
+    vectors = rng.randn(64, 2).astype(np.float32)
+    pairs = [
+        (orientation.angle_bin_to_orientation(
+            torch.from_numpy(bins), torch.from_numpy(residual), 12),
+         jax_orientation.angle_bin_to_orientation(bins, residual, 12)),
+        (orientation.angle_vector_to_orientation(torch.from_numpy(vectors)),
+         jax_orientation.angle_vector_to_orientation(vectors)),
+        (orientation.orientation_to_angle_vector(torch.from_numpy(angles)),
+         jax_orientation.orientation_to_angle_vector(angles)),
+    ]
+    for got, want in pairs:
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6)
+    decoded = pairs[0][0].numpy()
+    assert decoded.min() >= -np.pi and decoded.max() <= np.pi
+    assert (bins * (2 * np.pi / 12) + residual > np.pi).any()

@@ -247,3 +247,33 @@ def test_pair_alone_matches_pair_in_batch():
         np.testing.assert_allclose(
             emd.emd_cost_fused(xyz1[i:i + 1], xyz2[i:i + 1]).cpu().numpy(),
             k1[i:i + 1].cpu().numpy(), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('loss', ['production', 'emd'])
+def test_graphed_dispatch_matches_eager_steps(loss):
+    """Two dispatches of 2 steps through the CUDA graph of the train step
+    (``train.step_graph``) against 4 eager steps of a tiny float32 net
+    from the same seed and batches, under deterministic algorithms
+    (``chip_smoke.graph_against_eager``): every leaf of the state bit for
+    bit or within rtol 2e-5 / atol 1e-6 (tests/test_steps_per_dispatch.py's
+    bounds); with the 'emd' loss K2 is captured once and replayed. The
+    count replaced instead of updated in place fails the same check.
+    ``chip_smoke`` lies at the repository root, which ``python -m
+    pytest`` from there puts on the path."""
+    _cuda()
+    import chip_smoke
+    cfg = chip_smoke.tiny_train_config()
+    batches = [chip_smoke.synthetic_batch(40 + i, cfg, 2, (96, 320),
+                                          (96, 320)) for i in range(4)]
+    loss_config = {'production': chip_smoke.LOSS_CONFIG,
+                   'emd': chip_smoke.EMD_LOSS_CONFIG}[loss]
+    got = chip_smoke.graph_against_eager(cfg, loss_config, batches, 0, 2)
+    assert got['bitwise_equal'] or got['within_bound'], got
+    assert got['steps'] == [4, 4] and got['count'] == [4, 4]
+    assert got['replays'] == 3
+    assert got['k2_captured'] == (1 if loss == 'emd' else 0)
+    planted = chip_smoke.graph_against_eager(cfg, loss_config, batches, 0, 2,
+                                             planted=True)
+    assert not (planted['bitwise_equal'] or planted['within_bound'])
+    assert planted['count'] == [4, 2]

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from monopsr_tpu.config import ConfigObj
 from monopsr_tpu.train import optimizer as jax_opt
@@ -216,3 +217,97 @@ def test_train_state_ema_follows_jax():
                                   ts.ema_params['w'].numpy())
     np.testing.assert_array_equal(ts.train_variables()['w'].numpy(),
                                   module.w.detach().numpy())
+
+
+class NoHostRead(TorchDispatchMode):
+    """Raises on the two ops through which a tensor's value reaches the
+    host: ``aten._local_scalar_dense`` (``.item()``, ``int()``,
+    ``float()``, ``.tolist()`` of a device tensor) and ``aten.is_nonzero``
+    (``bool()``). A step that passes under it makes no host read, so a
+    CUDA graph can capture it."""
+
+    READS = (torch.ops.aten._local_scalar_dense.default,
+             torch.ops.aten.is_nonzero.default)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.READS:
+            raise AssertionError('host read: {}'.format(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize('opt_type,mu_dtype', [
+    ('adam_optimizer', None), ('adam_optimizer', 'bfloat16'),
+    ('momentum_optimizer', None), ('rms_prop_optimizer', None),
+    ('gradient_descent_optimizer', None)])
+def test_update_reads_nothing_on_the_host(opt_type, mu_dtype):
+    """A clipped step, a step under the clip and a skipped non-finite step
+    under NoHostRead, through TrainState.apply_gradients with the EMA;
+    every state tensor is updated in place (the same tensor objects
+    before and after)."""
+    config = _train_config(opt_type, optimizer_mu_dtype=mu_dtype)
+    tx, _, _, _ = optimizer.build_optimizer(config, clip_gradient_norm=1.0)
+    module = torch.nn.Module()
+    for k, s in SHAPES.items():
+        setattr(module, k, torch.nn.Parameter(torch.ones(s)))
+    state = TrainState.create(module, tx, use_ema=True)
+    tensors = {id(t) for t in _state_tensors(state)}
+    grads = _gradients(4, 3, nan_step=2)
+    with NoHostRead():
+        for g in grads:
+            state.apply_gradients({k: torch.from_numpy(v)
+                                   for k, v in g.items()}, tx, ema_decay=0.9)
+    assert {id(t) for t in _state_tensors(state)} == tensors
+    assert int(state.opt_state['count']) == 2
+    assert int(state.opt_state['notfinite_count']) == 1
+    assert not bool(state.opt_state['last_finite'])
+
+
+def _state_tensors(state):
+    out = list(state.params.values()) + list(state.ema_params.values())
+    for value in state.opt_state.values():
+        out.extend(value.values() if isinstance(value, dict) else [value])
+    return out
+
+
+@pytest.mark.parametrize('opt_type', ['adam_optimizer',
+                                      'rms_prop_optimizer'])
+def test_fifty_nonfinite_steps_in_a_row_as_masked_apply_if_finite(opt_type):
+    """With the clip: 2 finite steps, 50 non-finite ones (all skipped),
+    a finite one (applied, the run of skips reset), then 51 non-finite
+    ones, of which the 51st goes through. Parameters after every step
+    against the JAX package's masked_apply_if_finite over optax (NaN
+    where it has NaN), and its counters at the end."""
+    config = _train_config(opt_type)
+    rng = np.random.RandomState(5)
+    params = {k: rng.randn(*s).astype(np.float32) for k, s in SHAPES.items()}
+
+    def finite():
+        return {k: rng.randn(*s).astype(np.float32) for k, s in
+                SHAPES.items()}
+
+    def nonfinite(i):
+        g = finite()
+        g['c'][0, 1, i % 4] = np.inf if i % 2 else np.nan
+        return g
+
+    grads = ([finite() for _ in range(2)] +
+             [nonfinite(i) for i in range(50)] + [finite()] +
+             [nonfinite(i) for i in range(51)])
+    want, jax_state = _run_jax(config, params, grads, 1.0)
+    got, state = _run_torch(config, params, grads, 1.0)
+    for t, (g, w) in enumerate(zip(got, want)):
+        for k in SHAPES:
+            np.testing.assert_allclose(g[k], w[k], rtol=2e-6, atol=1e-7,
+                                       err_msg='{} step {}'.format(k, t))
+    for t in range(2, 52):                      # the skipped run
+        for k in SHAPES:
+            np.testing.assert_array_equal(got[t][k], got[1][k])
+    assert not np.isfinite(got[-1]['c']).all()
+    assert np.isfinite(got[-2]['c']).all()
+    found = {}
+    weights._flax_opt_leaves(jax_state, found)
+    assert int(state['notfinite_count']) == int(found['notfinite_count']) \
+        == 51
+    assert int(state['total_notfinite']) == int(found['total_notfinite']) \
+        == 101
+    assert set(found['counts']) == {int(state['count'])} == {4}

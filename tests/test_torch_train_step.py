@@ -27,6 +27,7 @@ each leaf's largest value. Logged losses as the gradient test's.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from monopsr_tpu.config import ConfigObj
 from monopsr_tpu.models import monopsr_net as jax_net
@@ -116,3 +117,55 @@ def test_three_train_steps_match_jax(setup, xyz_loss, images):
     moved = tp.leaves(weights.to_flax_variables(tstate.params)['params'])
     first = tp.leaves(host.params)
     assert max(np.abs(moved[k] - first[k]).max() for k in first) > LR
+
+
+@pytest.mark.parametrize('xyz_loss', [['smooth_l1_nonzero', 100.0],
+                                      ['emd', 1.0]])
+def test_train_step_reads_nothing_on_the_host(xyz_loss):
+    """A whole make_train_step step (Adam with the clip, the EMA,
+    skip_nonfinite) after a first one, as a CUDA graph captures it
+    (``train.step_graph``), under tests/test_torch_optimizer.NoHostRead
+    widened to tensors made from host numbers, then a non-finite step (a
+    NaN planted in a parameter makes every loss and gradient NaN), which
+    the optimizer skips the same way. Tiny widths (16x16 ROIs, 2 boxes)
+    keep it short."""
+    from tests.test_torch_optimizer import NoHostRead
+
+    class NoHostData(NoHostRead):
+        """NoHostRead, and no tensor made from host numbers
+        (``aten.lift_fresh``): on a card that is a copy from pageable
+        memory, which a capture refuses. The step's constants are made
+        at its first run and kept (``utils.device.constant``)."""
+        READS = NoHostRead.READS + (torch.ops.aten.lift_fresh.default,)
+
+    jcfg, tcfg = tp.configs(img_roi_size=(16, 16), map_roi_size=(16, 16),
+                            num_boxes=2)
+    rng = np.random.RandomState(13)
+    batch = evaluator.stack_samples([tp.make_sample(rng, jcfg)])
+    train_config = tp.train_config(decay_steps=2)
+    assert train_config.get('skip_nonfinite_updates', True)
+    tx, _, use_ema, ema_decay = optimizer.build_optimizer(train_config)
+    net = torch_net.MonoPSRNet(tcfg)
+    step = trainer.make_train_step(net, tcfg, tp.loss_config(xyz_loss), tx,
+                                   use_ema, ema_decay, device='cpu')
+    state = trainer.create_train_state(net, tx, use_ema)
+    state, _ = step(state, batch)          # makes the kept constants
+    # the batch reaches the step as tensors, as the graph's input buffers
+    batch = evaluator.batch_to_device(batch, 'cpu')
+    with NoHostData():
+        state, losses = step(state, batch)
+    assert all(np.isfinite(float(v)) for v in losses.values())
+    assert int(state.opt_state['count']) == 2
+
+    name = next(iter(state.params))
+    with torch.no_grad():
+        state.params[name].view(-1)[0] = float('nan')
+    before = {k: v.detach().clone() for k, v in state.params.items()}
+    with NoHostData():
+        state, losses = step(state, batch)
+    assert not np.isfinite(float(losses['total_loss']))
+    assert int(state.opt_state['count']) == 2          # skipped
+    assert int(state.opt_state['notfinite_count']) == 1
+    for key, value in before.items():
+        torch.testing.assert_close(state.params[key].detach(), value,
+                                   rtol=0, atol=0, equal_nan=True)
