@@ -10,8 +10,9 @@ Phases, any failure of which exits non-zero:
 1. card: name and power limit (nvidia-smi); the TF32 switches as the
    port's precision policy sets them (``utils/device.resolve_device``,
    which every entry point passes through: TF32 off), printed.
-2. build: every CUDA kernel of the port, one nvcc per source, started
-   together, into build/monopsr_torch_kernels/.
+2. build: every CUDA kernel of the port, one nvcc per source, and the
+   host image library (csrc/image_host.cpp) with g++, all started
+   together, into build/monopsr_torch_kernels/ and build/monopsr_torch_host/.
 3. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes the eval step gives it, on masked clouds drawn apart
    (1e-4) and at small odd shapes; kernel and plain times, and the least
@@ -131,14 +132,29 @@ Phases, any failure of which exits non-zero:
    with ``steps_per_dispatch: 4`` on phase 9's config for 6 steps: logs
    at 4, 5, 6, checkpoints at 4 and 6; loop ms/step against phase 9's.
    (d) ``profile_step`` forces one step per dispatch (tiny config).
+18. host feed: (a) the host library (PNG unfiltering and the 8-bit
+   INTER_LINEAR resize in csrc/image_host.cpp, which ``utils/image_io``
+   calls with the interpreter lock released) bit for bit against the
+   plain numpy versions on the fixture's 49 PNGs, on seeded PNGs of each
+   row filter and mixed rows x 8-bit gray, RGB and 16-bit gray at odd
+   widths and 1-pixel sides, and on five resizes; (b) the loader's
+   per-sample decode, assembly and prepare_sample ms with the library
+   and with the plain versions swapped in here, in turns; (c)
+   PrefetchingLoader's samples per second at 1, 2 and 4 threads, alone
+   and while a thread replays the graphed production train step (K = 4);
+   (d) the training CLI at ``steps_per_dispatch: 4`` for 32 steps (a log
+   every dispatch, one checkpoint at the end): the steady ms/step against
+   phase 9's K = 1.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
 """
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -149,6 +165,7 @@ import sys
 import threading
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -168,6 +185,7 @@ from monopsr_torch.parallel import data_parallel
 from monopsr_torch.tools import convert_tf_resnet, odapi_manifest
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import pretrained, step_graph, trainer
+from monopsr_torch.train.input_pipeline import PrefetchingLoader
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io
@@ -3091,6 +3109,286 @@ def steps_per_dispatch_phase(seed, card, loop_report):
                 profile=profile, k1_launches=k1, seconds=seconds)
 
 
+# --------------------------------------------------------------------------
+# Phase 18: the host feed, PNG unfiltering and resizing in the host library
+# --------------------------------------------------------------------------
+
+FEED_THREADS = (1, 2, 4)     # PrefetchingLoader threads of 18(c)
+FEED_BATCHES = 25            # batches of 1 per throughput reading
+FEED_LOOP_STEPS = 32         # 18(d): 4 warm-up steps, then 7 dispatches of 4
+FEED_LOOP_NAME = 'chip_smoke_train_k4_long'
+FEED_SIZES = [(1, 1), (1, 9), (7, 1), (6, 13), (61, 127)]
+FEED_RESIZES = [((370, 1224, 3), (320, 1216)), ((375, 1242), (320, 1216)),
+                ((37, 61, 3), (96, 200)), ((29, 30), (1, 1)),
+                ((1, 30, 3), (13, 1))]
+
+
+def encode_png(pixels, depth, colour, row_filters):
+    """A PNG of ``pixels`` (8-bit gray, RGB or 16-bit gray), row r
+    filtered by row_filters[r] as the PNG specification defines the
+    filters (neighbours left of column 0 and above row 0 are zero)."""
+    h, w = pixels.shape[:2]
+    raw = (pixels.astype('>u2').view(np.uint8) if depth == 16
+           else pixels).reshape(h, -1).astype(np.int32)
+    bpp = raw.shape[1] // w
+    a, b, c = (np.zeros_like(raw) for _ in range(3))
+    a[:, bpp:] = raw[:, :-bpp]
+    b[1:] = raw[:-1]
+    c[1:, bpp:] = raw[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(raw), a, b, (a + b) // 2, paeth])
+    kinds = np.asarray(row_filters, np.int64)
+    rows = np.concatenate([kinds[:, None].astype(np.uint8), (
+        (raw - preds[kinds, np.arange(h)]) % 256).astype(np.uint8)], 1)
+    header = struct.pack('>IIBBBBB', w, h, depth, colour, 0, 0, 0)
+    return (image_io._SIGNATURE + image_io._chunk(b'IHDR', header) +
+            image_io._chunk(b'IDAT', zlib.compress(rows.tobytes())) +
+            image_io._chunk(b'IEND', b''))
+
+
+def host_library_correctness(seed):
+    """Phase 18(a): the host library against the plain numpy versions,
+    bit for bit: every fixture PNG; seeded PNGs of each filter (and
+    mixed rows) x 8-bit gray, RGB and 16-bit gray x FEED_SIZES (odd
+    widths, 1-pixel sides); the resize at FEED_RESIZES."""
+    library = cuda_build.build(['image_host'])['image_host']  # phase 2's
+    fixture = os.path.join(monopsr_torch.top_dir(), 'tests', 'datasets',
+                           'Kitti', 'object')
+    pngs = sorted(glob.glob(os.path.join(fixture, '**', '*.png'),
+                            recursive=True))
+    if len(pngs) != 49:
+        fail('host feed: {} fixture PNGs, want 49'.format(len(pngs)))
+    bad = [p for p in pngs if not np.array_equal(
+        image_io.read_png(p), image_io.read_png_plain(p))]
+    rng = np.random.RandomState(seed + 18)
+    out_dir = os.path.join(monopsr_torch.top_dir(), 'build', 'chip_smoke')
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, 'host_feed.png')
+    synthetic = 0
+    for filters in (0, 1, 2, 3, 4, 'mixed'):
+        for depth, colour, channels in ((8, 0, 1), (8, 2, 3), (16, 0, 1)):
+            for h, w in FEED_SIZES:
+                shape = (h, w, channels) if channels > 1 else (h, w)
+                pixels = rng.randint(0, 1 << depth, shape).astype(
+                    np.uint16 if depth == 16 else np.uint8)
+                kinds = (rng.randint(0, 5, h) if filters == 'mixed'
+                         else [filters] * h)
+                with open(path, 'wb') as f:
+                    f.write(encode_png(pixels, depth, colour, kinds))
+                got = image_io.read_png(path)
+                synthetic += 1
+                if not (got.dtype == pixels.dtype and
+                        np.array_equal(got, pixels) and
+                        np.array_equal(got, image_io.read_png_plain(path))):
+                    bad.append('synthetic filter {} depth {} colour {} '
+                               '{}x{}'.format(filters, depth, colour, h, w))
+    os.remove(path)
+    for src, dst in FEED_RESIZES:
+        image = rng.randint(0, 256, src).astype(np.uint8)
+        got = image_io.resize_bilinear_uint8(image, dst)
+        if got.shape != dst + src[2:] or not np.array_equal(
+                got, image_io.resize_bilinear_uint8_plain(image, dst)):
+            bad.append('resize {} -> {}'.format(src, dst))
+    if bad:
+        fail('host feed: the host library differs from the plain version '
+             'on {}'.format(bad))
+    return dict(library=os.path.relpath(library, monopsr_torch.top_dir()),
+                fixture_pngs=len(pngs),
+                synthetic_pngs=synthetic, resizes=len(FEED_RESIZES),
+                bitwise_equal=True)
+
+
+@contextlib.contextmanager
+def plain_image_functions():
+    """image_io's decode and resize swapped for their plain numpy
+    versions (the dataset layer and prepare_sample call them through the
+    module), restored after."""
+    read, resize = image_io.read_png, image_io.resize_bilinear_uint8
+    image_io.read_png = image_io.read_png_plain
+    image_io.resize_bilinear_uint8 = image_io.resize_bilinear_uint8_plain
+    try:
+        yield
+    finally:
+        image_io.read_png, image_io.resize_bilinear_uint8 = read, resize
+
+
+def host_feed_costs(config_path):
+    """Phase 18(b): ``loader_times`` with the host library and with the
+    plain versions, in turns (plain, library, library, plain); the means
+    of each's two passes."""
+    runs = {'library': [], 'plain': []}
+    for kind in ('plain', 'library', 'library', 'plain'):
+        if kind == 'plain':
+            with plain_image_functions():
+                runs[kind].append(loader_times(config_path))
+        else:
+            runs[kind].append(loader_times(config_path))
+    return {kind: {key: float(np.mean([r[key] for r in passes]))
+                   for key in passes[0]}
+            for kind, passes in runs.items()}
+
+
+def loader_rate(dataset, shape, threads):
+    """Samples per second of a PrefetchingLoader (batch 1) with
+    ``threads`` threads: FEED_BATCHES batches taken as soon as each is
+    ready, rated from the first to the last."""
+    loader = PrefetchingLoader(dataset, 1, shape, num_threads=threads)
+    try:
+        stamps = []
+        for _ in range(FEED_BATCHES):
+            loader.get_batch()
+            stamps.append(time.perf_counter())
+    finally:
+        loader.stop()
+    return (FEED_BATCHES - 1) / (stamps[-1] - stamps[0])
+
+
+def host_feed_throughput(seed, config_path):
+    """Phase 18(c): PrefetchingLoader's samples per second over the
+    fixture at FEED_THREADS threads, alone and then while a thread of
+    this process replays the graphed production train step (bfloat16,
+    batch 1, K = GRAPH_K, a synchronize after each dispatch); the step's
+    ms/step alone and beside each loader."""
+    config = config_lib.parse_yaml_config(config_path)
+    shape = tuple(config.model_config.image_input_shape)
+
+    def dataset():
+        return KittiDataset(config.dataset_config, 'train')
+    alone = {n: loader_rate(dataset(), shape, n) for n in FEED_THREADS}
+
+    cfg = production_config()
+    net = monopsr.create_net(cfg, device='cuda', seed=seed)
+    tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+    step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx, use_ema,
+                                   decay, device='cuda')
+    state = trainer.create_train_state(net, tx, use_ema)
+    graphed = step_graph.GraphedTrainStep(step, 'cuda')
+    dispatch = [synthetic_batch(seed, cfg, 1, (375, 1242),
+                                C.DEPTH_PAD_SHAPE)] * GRAPH_K
+    graphed(state, dispatch)                  # warm-up and capture
+    torch.cuda.synchronize()
+
+    def replay_ms(stop, out):
+        """Replays dispatches until ``stop`` is set; ms/step into out."""
+        steps, t0 = 0, time.perf_counter()
+        while not stop.is_set() or steps == 0:
+            graphed(state, dispatch)
+            torch.cuda.synchronize()
+            steps += GRAPH_K
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+
+    step_alone = []
+    stop = threading.Event()
+    stop.set()
+    for _ in range(3):
+        replay_ms(stop, step_alone)
+    beside, step_beside = {}, {}
+    for n in FEED_THREADS:
+        stop, out = threading.Event(), []
+        replays = threading.Thread(target=replay_ms, args=(stop, out))
+        replays.start()
+        try:
+            beside[n] = loader_rate(dataset(), shape, n)
+        finally:
+            stop.set()
+            replays.join()
+        step_beside[n] = out[0]
+    if not all(bool(torch.isfinite(v)) for v in graphed.losses.values()):
+        fail('host feed: the graphed step\'s losses are not finite')
+    del net, state, step, graphed
+    torch.cuda.empty_cache()
+    return dict(samples_per_s_alone=alone, samples_per_s_beside_step=beside,
+                step_ms_alone=float(np.median(step_alone)),
+                step_ms_beside_loader=step_beside)
+
+
+def host_feed_loop(card, loop_report):
+    """Phase 18(d): the training CLI on phase 9's fixture config at
+    ``steps_per_dispatch: GRAPH_K`` for FEED_LOOP_STEPS steps, a log every
+    dispatch and the one checkpoint at the last step: ms/step of every
+    logged dispatch, the steady ms/step (median of the dispatches after
+    the first, which holds the warm-up step and the capture; the last
+    dispatch's log comes before its checkpoint) against phase 9's K = 1."""
+    path = production_yaml(FEED_LOOP_NAME, [
+        ('seed', '0', 1), ('max_iterations', str(FEED_LOOP_STEPS), 1),
+        ('summary_interval', '1', 1),
+        ('checkpoint_interval', '{}\n    steps_per_dispatch: {}'.format(
+            FEED_LOOP_STEPS, GRAPH_K), 1)])
+    config = config_lib.parse_yaml_config(path)
+    shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    try:
+        torch.cuda.empty_cache()
+        lines, start_s, _ = run_training_cli(path)
+        records = [r for r in read_train_log(config) if 'total_loss' in r]
+        checkpoints = trainer.CheckpointManager(
+            config.checkpoint_dir).all_steps()
+    finally:
+        shutil.rmtree(config.exp_output_dir, ignore_errors=True)
+    want = list(range(GRAPH_K, FEED_LOOP_STEPS + 1, GRAPH_K))
+    if [r['step'] for r in records] != want or checkpoints != [
+            FEED_LOOP_STEPS]:
+        fail('host feed loop: logged {} and checkpoints {}, want {} and '
+             '[{}]'.format([r['step'] for r in records], checkpoints, want,
+                           FEED_LOOP_STEPS))
+    if not all(np.isfinite(v) for r in records for v in r.values()):
+        fail('host feed loop: a logged value is not finite')
+    ms = {r['step']: 1e3 / r['steps_per_sec'] for r in records}
+    return dict(ms_per_step={k: round(v, 3) for k, v in ms.items()},
+                steady_ms_per_step=float(np.median(
+                    [ms[k] for k in want[1:]])),
+                k1_steady_ms_per_step=loop_report['steady_ms_per_step'],
+                start_to_first_step_s=start_s)
+
+
+def host_feed_phase(seed, card, loop_report):
+    """Phase 18: (a) the host library bit for bit against the plain
+    versions, (b) the loader's per-sample costs with each, (c) the
+    loader's throughput per thread count alone and beside the graphed
+    step, (d) the training CLI's steady rate at K = GRAPH_K."""
+    t0 = time.time()
+    correct = host_library_correctness(seed)
+    print('host feed (a) ({}): {} (built by g++ in phase 2) bit for bit '
+          'equal to the plain versions on {} fixture PNGs, {} seeded PNGs (5 '
+          'filters and mixed rows x gray8, RGB, gray16 x {}) and {} resizes'
+          .format(card, correct['library'], correct['fixture_pngs'],
+                  correct['synthetic_pngs'], FEED_SIZES, correct['resizes']))
+    config_path = train_loop_config(4)
+    costs = host_feed_costs(config_path)
+    for kind in ('library', 'plain'):
+        c = costs[kind]
+        print('host feed (b), {} ({}): one thread, per sample over {} '
+              'fixture train samples: PNG decode {:.3f} ms, assembly '
+              '{:.3f} ms, prepare_sample {:.3f} ms per valid sample; '
+              '{:.3f} ms per delivered sample'.format(
+                  'host library' if kind == 'library' else
+                  'plain numpy versions', card, int(c['samples']),
+                  c['decode_ms'], c['assembly_ms'], c['prepare_ms'],
+                  c['ms_per_delivered_sample']))
+    rates = host_feed_throughput(seed, config_path)
+    for n in FEED_THREADS:
+        print('host feed (c) ({}): PrefetchingLoader, {} thread(s), batch '
+              '1: {:.3f} samples/s alone, {:.3f} beside the graphed step '
+              '(K = {}, which ran {:.3f} ms/step beside it, {:.3f} alone)'
+              .format(card, n, rates['samples_per_s_alone'][n],
+                      rates['samples_per_s_beside_step'][n], GRAPH_K,
+                      rates['step_ms_beside_loader'][n],
+                      rates['step_ms_alone']))
+    loop = host_feed_loop(card, loop_report)
+    print('host feed (d) ({}): run_training CLI, steps_per_dispatch {}, {} '
+          'steps: wall ms/step per logged dispatch {}; steady {:.3f} '
+          'ms/step against phase 9 at K = 1 {:.3f}; {:.1f} s to the first '
+          'step line'.format(card, GRAPH_K, FEED_LOOP_STEPS,
+                             loop['ms_per_step'], loop['steady_ms_per_step'],
+                             loop['k1_steady_ms_per_step'],
+                             loop['start_to_first_step_s']))
+    seconds = time.time() - t0
+    print('host feed: {:.1f} s'.format(seconds))
+    return dict(correctness=correct, costs=costs, throughput=rates,
+                loop=loop, seconds=seconds)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -3115,9 +3413,9 @@ def main():
               torch.backends.cudnn.allow_tf32))
 
     t0 = time.time()
-    cuda_build.build()
-    print('build: {} kernel(s) in {:.1f} s'.format(
-        len(cuda_build.SOURCES), time.time() - t0))
+    cuda_build.build(list(cuda_build.SOURCES) + list(cuda_build.HOST_SOURCES))
+    print('build: {} kernel(s) with nvcc and the host library with g++ in '
+          '{:.1f} s'.format(len(cuda_build.SOURCES), time.time() - t0))
     for name in cuda_build.SOURCES:
         for line in cuda_build.build_log(name).splitlines():
             if 'registers' in line or 'spill' in line:
@@ -3156,6 +3454,7 @@ def main():
             shutil.rmtree(path, ignore_errors=True)
     pretrained_report = pretrained_remat_phase(args.seed, card)
     graph_report = steps_per_dispatch_phase(args.seed, card, loop_report)
+    feed_report = host_feed_phase(args.seed, card, loop_report)
     emd_graph = graph_report['equality']['emd loss']
 
     b, n, m = prod['shape']
@@ -3246,6 +3545,7 @@ def main():
     print('accuracy gate, short: ' + json.dumps(gate_report))
     print('pretrained trunk and remat: ' + json.dumps(pretrained_report))
     print('steps_per_dispatch: ' + json.dumps(graph_report))
+    print('host feed: ' + json.dumps(feed_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

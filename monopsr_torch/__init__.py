@@ -10,7 +10,9 @@ The package imports torch only; it never imports jax or monopsr_tpu.
 Entry points run on CUDA unless the caller passes ``device='cpu'``
 (see ``monopsr_torch.utils.device``). The Pallas kernels of the JAX
 package become hand-written CUDA kernels under ``csrc/``, built with
-nvcc at first use (``monopsr_torch.ops.cuda_build``).
+nvcc at first use (``monopsr_torch.ops.cuda_build``); the input
+pipeline's PNG unfiltering and resize run in a host library beside them
+(``csrc/image_host.cpp``), built with g++ at first use on every machine.
 
 Path helpers as in the JAX package: every output location derives from
 ``<repo>/data/outputs/<config_name>/...``.

@@ -1,5 +1,5 @@
-"""PNG decoding and encoding and bilinear resizing in numpy (no cv2, PIL
-or imageio).
+"""PNG decoding and encoding and bilinear resizing without cv2, PIL or
+imageio.
 
 Stands in for the JAX package's ``cv2.imread`` calls (the KITTI RGB
 image, the 16-bit depth and disparity maps, the 8-bit instance image),
@@ -8,23 +8,37 @@ and the depth maps (``write_png``, 8-bit and 16-bit gray; ``png_shape``
 reads an image's size from its header) and for the
 ``cv2.resize(INTER_LINEAR)`` of ``trainer.prepare_sample``.
 
-``read_png`` undoes the five PNG row filters with a wavefront: pixel x of
-row r is decoded at step r + x, so each step takes one pixel of every
-row at once, the rows' own filter types picked per row. Its left, upper
-and upper-left neighbours were decoded at earlier steps, which is what
-the Sub, Average and Paeth filters need. That is w + h - 1 vectorised
-steps per image instead of a Python loop over every byte.
+As cv2 does for the JAX package's loader threads, the per-byte work runs
+in compiled code outside the interpreter lock: ``read_png`` inflates
+with ``zlib`` and undoes the row filters in ``csrc/image_host.cpp``
+(``png_unfilter``), and ``resize_bilinear_uint8`` runs its two integer
+passes there (``resize_linear_u8``). The library is built by g++ at
+first use (``ops/cuda_build``, ``HOST_SOURCES``) and loaded with
+``ctypes.CDLL``, which releases the lock for each call; a failed build
+raises. ``read_png_plain`` and ``resize_bilinear_uint8_plain`` are the
+plain numpy versions of the same functions, which the tests hold the
+library to bit for bit.
 
-``resize_bilinear_uint8`` writes out OpenCV's fixed-point INTER_LINEAR
-for 8-bit images: half-pixel centres, edge taps clamped, 11-bit weights
-rounded from float32 offsets, and the vertical pass's shifts
+``_unfilter_plain`` undoes the five PNG row filters with a wavefront:
+pixel x of row r is decoded at step r + x, so each step takes one pixel
+of every row at once, the rows' own filter types picked per row. Its
+left, upper and upper-left neighbours were decoded at earlier steps,
+which is what the Sub, Average and Paeth filters need. That is w + h - 1
+vectorised steps per image instead of a Python loop over every byte.
+
+The resize writes out OpenCV's fixed-point INTER_LINEAR for 8-bit
+images: half-pixel centres, edge taps clamped, 11-bit weights rounded
+from float32 offsets, and the vertical pass's shifts
 (``VResizeLinear<uchar, ...>`` in OpenCV's resize.cpp).
 """
 
+import ctypes
 import struct
 import zlib
 
 import numpy as np
+
+from monopsr_torch.ops import cuda_build
 
 _SIGNATURE = b'\x89PNG\r\n\x1a\n'
 
@@ -47,7 +61,8 @@ def _chunks(data, path):
 
 
 def read_png(path):
-    """Decodes a non-interlaced 8-bit gray, 8-bit RGB or 16-bit gray PNG.
+    """Decodes a non-interlaced 8-bit gray, 8-bit RGB or 16-bit gray PNG,
+    its row filters undone by the host library (``png_unfilter``).
 
     Returns:
         (H, W) uint8 or uint16 for gray files, (H, W, 3) uint8 in RGB
@@ -58,7 +73,18 @@ def read_png(path):
         FileNotFoundError: no file at ``path``.
         ValueError: not a PNG, or a palette, alpha, interlaced or
             other-depth file.
+        RuntimeError: the host library failed to build.
     """
+    return _read_png(path, _unfilter)
+
+
+def read_png_plain(path):
+    """``read_png`` with the row filters undone in numpy
+    (``_unfilter_plain``): the plain version the library is held to."""
+    return _read_png(path, _unfilter_plain)
+
+
+def _read_png(path, unfilter):
     with open(path, 'rb') as f:
         data = f.read()
     if not data.startswith(_SIGNATURE):
@@ -84,10 +110,9 @@ def read_png(path):
     if raw.size != height * (1 + width * bpp):
         raise ValueError('PNG data size does not match its header: ' + path)
     raw = raw.reshape(height, 1 + width * bpp)
-    filters = raw[:, 0]
-    if filters.max(initial=0) > 4:
+    if raw[:, 0].max(initial=0) > 4:
         raise ValueError('Invalid PNG filter type: ' + path)
-    pixels = _unfilter(filters, raw[:, 1:].reshape(height, width, bpp))
+    pixels = unfilter(raw, width, bpp)
     if depth == 16:
         pixels = pixels.reshape(height, width * 2).view('>u2').astype(
             np.uint16)
@@ -138,8 +163,32 @@ def write_png(path, image):
         f.write(data)
 
 
-def _unfilter(filters, filtered):
-    """Reconstructs (H, W, bpp) bytes from their filtered form.
+def _host_function(name, argtypes):
+    fn = getattr(cuda_build.load('image_host'), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+    return fn
+
+
+_POINTER, _INT64 = ctypes.c_void_p, ctypes.c_int64
+
+
+def _unfilter(raw, width, bpp):
+    """(H, W, bpp) bytes from (H, 1 + W * bpp) inflated rows (each a
+    filter type, then its filtered bytes), by the host library."""
+    raw = np.ascontiguousarray(raw)
+    height = raw.shape[0]
+    out = np.empty((height, width, bpp), np.uint8)
+    fn = _host_function('png_unfilter', (_POINTER, _POINTER, _INT64,
+                                         _INT64, _INT64))
+    if fn(raw.ctypes.data, out.ctypes.data, height, width * bpp, bpp):
+        raise ValueError('Invalid PNG filter type')
+    return out
+
+
+def _unfilter_plain(raw, width, bpp):
+    """``_unfilter`` in numpy: reconstructs (H, W, bpp) bytes from their
+    filtered form.
 
     Rows filtered by None (0) or Sub (1) do not read the row above: when
     every row is one of those, each Sub row is a running sum mod 256 of
@@ -150,7 +199,9 @@ def _unfilter(filters, filtered):
     out[s, r + 1], out[s, r] and out[s - 1, r]. Entries never written stay
     zero: the neighbours left of column 0 and above row 0, as the PNG
     filters define them."""
-    h, w, bpp = filtered.shape
+    filters = raw[:, 0]
+    filtered = raw[:, 1:].reshape(raw.shape[0], width, bpp)
+    h, w = filtered.shape[:2]
     if filters.max(initial=0) <= 1:
         sub = filters == 1
         out = filtered.copy()
@@ -197,23 +248,13 @@ def _clamped(idx, size):
     return np.clip(idx, 0, size - 1)
 
 
-def resize_bilinear_uint8(image, shape):
-    """Resizes an (H, W) or (H, W, C) uint8 image to ``shape`` = (h, w)
-    with OpenCV's INTER_LINEAR fixed-point arithmetic.
-
-    Horizontal pass: S[x0] * a0 + S[x1] * a1 in integers, with a = the
-    float32 weights times 2048 rounded to nearest even (x clamped: left of
-    the image and at its last column the weights become (2048, 0)).
-    Vertical pass: ((b0 * (R0 >> 4)) >> 16) + ((b1 * (R1 >> 4)) >> 16),
-    then (+ 2) >> 2, with rows clamped into the image and b rounded as a.
-    """
-    image = np.asarray(image)
-    if image.dtype != np.uint8:
-        raise ValueError('resize_bilinear_uint8 takes uint8, got {}'.format(
-            image.dtype))
-    sh, sw = image.shape[:2]
-    dh, dw = int(shape[0]), int(shape[1])
-
+def _resize_taps(src_shape, dst_shape):
+    """(x0, x1, ax0, ax1, y0, y1, by0, by1): per output column the two
+    source columns and their 11-bit weights, per output row the two
+    source rows and theirs (int64 indices clamped into the image, int32
+    weights), as ``resize_bilinear_uint8`` states them."""
+    sh, sw = src_shape
+    dh, dw = dst_shape
     x0, fx = _linear_taps(sw, dw)
     left, right = x0 < 0, x0 >= sw - 1
     fx[left | right] = 0.0
@@ -227,7 +268,49 @@ def resize_bilinear_uint8(image, shape):
     by1 = np.rint(fy * _COEF_SCALE).astype(np.int32)
     y1 = _clamped(y0 + 1, sh)
     y0 = _clamped(y0, sh)
+    return x0, x1, ax0, ax1, y0, y1, by0, by1
 
+
+def _checked_uint8(image, shape):
+    image = np.asarray(image)
+    if image.dtype != np.uint8:
+        raise ValueError('resize_bilinear_uint8 takes uint8, got {}'.format(
+            image.dtype))
+    return image, (int(shape[0]), int(shape[1]))
+
+
+def resize_bilinear_uint8(image, shape):
+    """Resizes an (H, W) or (H, W, C) uint8 image to ``shape`` = (h, w)
+    with OpenCV's INTER_LINEAR fixed-point arithmetic, in the host
+    library (``resize_linear_u8``).
+
+    Horizontal pass: S[x0] * a0 + S[x1] * a1 in integers, with a = the
+    float32 weights times 2048 rounded to nearest even (x clamped: left of
+    the image and at its last column the weights become (2048, 0)).
+    Vertical pass: ((b0 * (R0 >> 4)) >> 16) + ((b1 * (R1 >> 4)) >> 16),
+    then (+ 2) >> 2, with rows clamped into the image and b rounded as a.
+    """
+    image, (dh, dw) = _checked_uint8(image, shape)
+    src = np.ascontiguousarray(image)
+    sh, sw = src.shape[:2]
+    channels = src.shape[2] if src.ndim == 3 else 1
+    taps = [np.ascontiguousarray(t) for t in
+            _resize_taps((sh, sw), (dh, dw))]
+    out = np.empty((dh, dw) + src.shape[2:], np.uint8)
+    fn = _host_function('resize_linear_u8', (
+        _POINTER, _INT64, _INT64, _INT64, _POINTER, _INT64, _INT64) +
+        (_POINTER,) * 8)
+    fn(src.ctypes.data, sh, sw, channels, out.ctypes.data, dh, dw,
+       *[t.ctypes.data for t in taps])
+    return out
+
+
+def resize_bilinear_uint8_plain(image, shape):
+    """``resize_bilinear_uint8`` in numpy: the plain version the library
+    is held to."""
+    image, (dh, dw) = _checked_uint8(image, shape)
+    x0, x1, ax0, ax1, y0, y1, by0, by1 = _resize_taps(image.shape[:2],
+                                                      (dh, dw))
     src = image.astype(np.int32)
     extra = (None,) * (image.ndim - 2)
     rows = (src[:, x0] * ax0[(slice(None),) + extra] +

@@ -97,13 +97,46 @@ def test_tool_and_demo_clis_parse_their_flags_without_jax():
 def test_sources_name_no_jax():
     for root, _, files in os.walk(os.path.join(REPO, 'monopsr_torch')):
         for name in files:
-            if name.endswith(('.py', '.cu', '.cuh')):
+            if name.endswith(('.py', '.cu', '.cuh', '.cpp')):
                 with open(os.path.join(root, name)) as f:
                     text = f.read()
                 for banned in ('import jax', 'from jax', 'import flax',
                                'import optax', 'from monopsr_tpu',
                                'import monopsr_tpu'):
                     assert banned not in text, (name, banned)
+
+
+# The host image library (csrc/image_host.cpp) builds into an empty
+# directory and decodes and resizes with the same modules blocked
+_HOST_LIBRARY = r"""
+import sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+from monopsr_torch.ops import cuda_build
+from monopsr_torch.utils import image_io
+cuda_build.HOST_BUILD_DIR = sys.argv[1]
+image = image_io.read_png(sys.argv[2])
+small = image_io.resize_bilinear_uint8(image, (32, 96))
+assert np.array_equal(small, image_io.resize_bilinear_uint8_plain(
+    image, (32, 96)))
+assert cuda_build.library_path('image_host').startswith(sys.argv[1])
+leaked = sorted(m for m in sys.modules if m.split('.')[0] in {blocked!r}
+                and sys.modules[m] is not None)
+print(image.shape, leaked)
+""".format(blocked=_BLOCKED)
+
+
+def test_host_library_builds_and_loads_without_jax_cv2_or_pil(tmp_path):
+    png = os.path.join(REPO, 'tests', 'datasets', 'Kitti', 'object',
+                       'training', 'image_2', '000000.png')
+    out = subprocess.run([sys.executable, '-c', _HOST_LIBRARY,
+                          str(tmp_path), png], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith('[]')
+    assert any(name.startswith('image_host-') and name.endswith('.so')
+               for name in os.listdir(tmp_path))
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
