@@ -145,6 +145,12 @@ Phases, any failure of which exits non-zero:
    (d) the training CLI at ``steps_per_dispatch: 4`` for 32 steps (a log
    every dispatch, one checkpoint at the end): the steady ms/step against
    phase 9's K = 1.
+19. bench: the port's bench (``python -m monopsr_torch.experiments.bench
+   --repeats 3``, ``monopsr_torch/experiments/bench.py``) in a
+   subprocess on the card: it must exit 0 with its result line (every
+   reading finite, every share of the card at most 100%, K1 and K2
+   against their plain versions), which is printed; its K1 and K2
+   medians must lie within 25% of phases 3 and 6's times in this run.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -176,7 +182,7 @@ from monopsr_torch import constants as C
 from monopsr_torch import weights
 from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
 from monopsr_torch.eval import evaluator, native_eval
-from monopsr_torch.geometry import class_stats
+from monopsr_torch.experiments import flagship
 from monopsr_torch.models import monopsr
 from monopsr_torch.models.monopsr_net import NetConfig
 from monopsr_torch.ops import cuda_build
@@ -189,65 +195,26 @@ from monopsr_torch.train.input_pipeline import PrefetchingLoader
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import image_io
+from monopsr_torch.utils.profiling import (emd_bound_ms, nvidia_smi,
+                                           profile_step, time_cuda)
 
 EVAL_BATCH = 4     # configs/monopsr_model_000.yaml train_config.eval_batch
 TRAIN_BATCH = 1    # configs/monopsr_model_000.yaml train_config.batch_size
 STEPS = 5          # timed steps per mode
 
-TRAIN_CONFIG = {   # configs/monopsr_model_000.yaml train_config.optimizer
-    'optimizer': {
-        'optimizer_type': 'adam_optimizer',
-        'adam_optimizer': {
-            'learning_rate_type': 'exponential_decay',
-            'initial_learning_rate': 0.00008,
-            'decay_steps': 10000,
-            'decay_factor': 0.8,
-            'staircase': True,
-            'use_moving_average': True,
-            'moving_average_decay': 0.9999,
-        }}}
-
-LOSS_CONFIG = {   # configs/monopsr_model_000.yaml model_config.loss_config
-    'inst_xyz_map_local': ['smooth_l1_nonzero', 100.0],
-    'valid_mask_maps': ['sigmoid_ce', 0.1],
-    'lwh': ['smooth_l1', 1.0],
-    'alpha_cls': ['softmax', 0.3, 0.001],
-    'alpha_reg': ['smooth_l1', 1.0],
-    'alpha_cls_temp': ['softmax_temp', 0.3],
-    'view_ang': ['smooth_l1', 0.1],
-    'cen_y': ['smooth_l1', 0.1],
-    'cen_z': ['smooth_l1', 0.1],
-    'inst_xyz_map_global': ['smooth_l1_nonzero', 0.1],
-    'inst_depth_map_global': ['smooth_l1_nonzero', 10.0],
-}
+# configs/monopsr_model_000.yaml's optimizer section and loss config
+_PRODUCTION_YAML = flagship.flagship_yaml()
+TRAIN_CONFIG = flagship.train_config(_PRODUCTION_YAML)
+LOSS_CONFIG = flagship.loss_config(_PRODUCTION_YAML)
 
 # The same with the approximate-EMD loss on the local xyz maps (a loss
 # type the reference's loss builder accepts; the weight only scales it)
 EMD_LOSS_CONFIG = dict(LOSS_CONFIG, inst_xyz_map_local=['emd', 1.0])
 
-# Kernel-name substrings that group the profile (first match wins)
-KERNEL_GROUPS = (
-    ('emd_kernel', ('sweep_kernel<false>', 'emd_cost_fused')),
-    ('emd_loss', ('sweep_kernel<true>', 'emd_loss')),
-    ('convolution', ('fprop', 'dgrad', 'conv', 'cudnn', 'implicit_gemm')),
-    ('matmul', ('gemm', 'cutlass', 'cublas')),
-    ('gather/scatter', ('index', 'gather', 'scatter')),
-    ('reduction', ('reduce',)),
-    ('copy/cast', ('copy',)),
-    ('elementwise', ('elementwise',)),
-)
-
 
 def fail(msg):
     print('chip_smoke: FAILED: ' + msg, file=sys.stderr)
     sys.exit(1)
-
-
-def nvidia_smi(query):
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=' + query, '--format=csv,noheader'],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def rel_err(got, want):
@@ -261,92 +228,6 @@ def rel_err(got, want):
 # Inputs
 # --------------------------------------------------------------------------
 
-def production_config():
-    """configs/monopsr_model_000.yaml, written out (no YAML parser on the
-    card's machine)."""
-    return NetConfig(
-        num_boxes=32, num_alpha_bins=12, num_classes=1,
-        image_input_shape=(320, 1216), resized_full_img_shape=(160, 608),
-        img_roi_size=(48, 48), map_roi_size=(48, 48),
-        proposal_fc_sizes=(1024, 1024), regression_fc_sizes=(1024, 1024),
-        dropout_keep_prob=1.0, max_depth=45.0, mean_sub_type='kitti',
-        output_stride=4, resnet='resnet101', compute_dtype='bfloat16',
-        lwh_type='offset', alpha_type='dc', view_ang_type='est',
-        cen_y_type='offset', cen_z_type='offset', rotate_view=True,
-        centroid_type='middle', appended_est_norm='constant',
-        class_names=('Car',))
-
-
-def synthetic_sample(rng, cfg, orig_shape, depth_shape):
-    """One KITTI-like sample in the trainer's device encodings: uint8
-    image at the input shape, boxes in original-image pixels, uint16
-    depth (metres * 256) and uint8 instance image at the padded depth
-    shape with the objects painted into both."""
-    n, nb = cfg.num_boxes, cfg.num_alpha_bins
-    oh, ow = orig_shape
-    image = rng.randint(0, 256, cfg.image_input_shape + (3,)).astype(np.uint8)
-    cam_p = np.array([[721.5377, 0.0, 609.5593, 44.85728],
-                      [0.0, 721.5377, 172.854, 0.2163791],
-                      [0.0, 0.0, 1.0, 0.002745884]], np.float32)
-    depth = np.zeros(depth_shape, np.float32)
-    inst = np.full(depth_shape, 255, np.uint8)
-    boxes_2d = np.zeros((n, 4), np.float32)
-    boxes_3d = np.zeros((n, 7), np.float32)
-    for i in range(n):
-        bh, bw = rng.randint(oh // 16, oh // 3), rng.randint(ow // 40, ow // 6)
-        y1, x1 = rng.randint(oh // 4, oh - bh), rng.randint(0, ow - bw)
-        z = rng.uniform(6.0, 44.0)
-        yy, xx = np.mgrid[0:bh, 0:bw]
-        depth[y1:y1 + bh, x1:x1 + bw] = z + 0.01 * yy - 0.005 * xx
-        inst[y1:y1 + bh, x1:x1 + bw] = i
-        boxes_2d[i] = [y1, x1, y1 + bh, x1 + bw] + rng.uniform(-0.4, 0.4, 4)
-        # Box centre on the painted object (y is the bottom face)
-        cx = ((x1 + bw / 2) - cam_p[0, 2]) / cam_p[0, 0] * z
-        cy = ((y1 + bh / 2) - cam_p[1, 2]) / cam_p[1, 1] * z + 0.75
-        boxes_3d[i] = [cx, cy, z, 3.9, 1.6, 1.5, rng.uniform(-3, 3)]
-    alphas = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
-    width = 2 * np.pi / nb
-    angle = np.mod(alphas, 2 * np.pi)
-    bins = np.minimum((angle // width).astype(np.int32), nb - 1)
-    regs = (angle[:, None] - (np.arange(nb) + 0.5) * width).astype(np.float32)
-    view_2d = np.arctan2(((boxes_2d[:, 1] + boxes_2d[:, 3]) / 2 - cam_p[0, 2])
-                         / cam_p[0, 0], 1.0).astype(np.float32)
-    view_3d = np.arctan2(boxes_3d[:, 0] + cam_p[0, 3] / cam_p[0, 0],
-                         boxes_3d[:, 2]).astype(np.float32)
-    return {
-        'image': image,
-        C.SAMPLE_LABEL_BOXES_2D: boxes_2d,
-        C.SAMPLE_LABEL_BOXES_2D_NORM:
-            boxes_2d / np.array([oh, ow, oh, ow], np.float32),
-        C.SAMPLE_LABEL_BOXES_3D: boxes_3d,
-        C.SAMPLE_VIEWING_ANGLES_2D: view_2d,
-        C.SAMPLE_VIEWING_ANGLES_3D: view_3d,
-        C.SAMPLE_LABEL_CLASS_INDICES: np.ones((n, 1), np.int32),
-        C.SAMPLE_MEAN_LWH: np.tile(class_stats.MEAN_LWH['Car'], (n, 1)).astype(
-            np.float32),
-        C.SAMPLE_PROP_CEN_Z_OFFSET: np.full(
-            n, class_stats.PROP_CEN_Z_OFFSET['Car'], np.float32),
-        C.SAMPLE_CEN_Y_OFFSETS: np.full(
-            n, class_stats.CEN_Y_TREND_OFFSET_MIDDLE[('Car', 'kitti')],
-            np.float32),
-        C.SAMPLE_CAM_P: cam_p,
-        C.SAMPLE_DEPTH_MAP: np.rint(depth * 256.0).astype(np.uint16),
-        C.SAMPLE_INSTANCE_IMAGE: inst,
-        C.SAMPLE_INSTANCE_INDICES: np.arange(n, dtype=np.int32),
-        C.SAMPLE_ALPHAS: alphas,
-        C.SAMPLE_ALPHA_BINS: bins,
-        C.SAMPLE_ALPHA_REGS: regs,
-        C.SAMPLE_ALPHA_VALID_BINS: np.eye(nb, dtype=np.float32)[bins],
-    }
-
-
-def synthetic_batch(seed, cfg, size, orig_shape, depth_shape):
-    rng = np.random.RandomState(seed)
-    samples = [synthetic_sample(rng, cfg, orig_shape, depth_shape)
-               for _ in range(size)]
-    return evaluator.stack_samples(samples)
-
-
 def masked_clouds(gen, b, n, m, keep):
     """Prediction-like and GT-like clouds on the card, each pair zeroed
     outside one random mask as compute_metrics masks them (a share
@@ -359,84 +240,6 @@ def masked_clouds(gen, b, n, m, keep):
                 < keep).float()
         xyz1, xyz2 = xyz1 * mask, xyz2 * mask
     return xyz1.contiguous(), xyz2.contiguous()
-
-
-# --------------------------------------------------------------------------
-# Timing
-# --------------------------------------------------------------------------
-
-def time_cuda(fn, reps, warmup=1):
-    """Mean ms per call by CUDA events over `reps` calls."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def emd_bound_ms(b, n, m, sm_count, sm_clock_mhz, fp32_per_element,
-                 out_floats):
-    """Least time for an EMD kernel's work on this card: the larger of
-    the bytes it must move (both clouds in, ``out_floats`` float32 out)
-    over the memory rate and its operations over the peak rate of their
-    unit. Per element (b*n*m of them): 10 exps (rounds with a nonzero
-    level) and 11 square roots or rsqrts on the special-function units
-    (16 results per clock per SM on Hopper), and ``fp32_per_element``
-    float32 operations at 67 TFLOP/s: ~129 for the metric (distance
-    once, ~11 per round), ~230 for the loss (~9 more per round for the
-    gradient accumulators)."""
-    elems = float(b) * n * m
-    bytes_ms = (4.0 * b * (n + m) * 3 + 4.0 * out_floats) / 3.35e12 * 1e3
-    sfu_ms = elems * 21 / (16.0 * sm_count * sm_clock_mhz * 1e6) * 1e3
-    fp32_ms = elems * fp32_per_element / 67e12 * 1e3
-    return max(bytes_ms, sfu_ms, fp32_ms), (
-        'bytes' if bytes_ms >= max(sfu_ms, fp32_ms) else 'operations')
-
-
-def profile_step(step, batch, top=12):
-    """Device time by kernel over one step, from torch.profiler's CUPTI
-    trace, and the device's busy share of the step's wall time; returns
-    (wall ms, busy ms), busy None when the trace holds no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for avg in prof.key_averages():
-        if avg.device_type == DeviceType.CUDA:
-            us = getattr(avg, 'self_device_time_total', None)
-            if us is None:
-                us = getattr(avg, 'self_cuda_time_total', 0.0)
-            rows.append((us / 1e3, avg.count, avg.key))
-    if not rows:
-        print('  profile: the trace holds no device time (not measured)')
-        return wall_ms, None
-    busy = sum(r[0] for r in rows)
-    print('  profile (one step under the profiler): wall {:.3f} ms, device '
-          'busy {:.3f} ms ({:.1%}), {} kernel names'.format(
-              wall_ms, busy, busy / wall_ms, len(rows)))
-    groups = {}
-    for ms, count, name in rows:
-        group = next((g for g, keys in KERNEL_GROUPS if any(
-            k in name for k in keys)), 'other')
-        total, launches = groups.get(group, (0.0, 0))
-        groups[group] = (total + ms, launches + count)
-    print('  by group: ' + ', '.join(
-        '{} {:.3f} ms ({}x)'.format(g, ms, c) for g, (ms, c) in sorted(
-            groups.items(), key=lambda kv: -kv[1][0])))
-    for ms, count, name in sorted(rows, reverse=True)[:top]:
-        print('    {:9.3f} ms {:5d}x  {}'.format(ms, count, name[:110]))
-    return wall_ms, busy
 
 
 # --------------------------------------------------------------------------
@@ -498,7 +301,7 @@ def slice_reference(seed):
                     resized_full_img_shape=(48, 160),
                     proposal_fc_sizes=(64, 64), regression_fc_sizes=(64, 64),
                     resnet='resnet_tiny', compute_dtype='float32')
-    batch = synthetic_batch(seed + 1, cfg, 2, (96, 320), (96, 320))
+    batch = flagship.synthetic_batch(seed + 1, cfg, 2, (96, 320), (96, 320))
     results = []
     for device in ('cpu', 'cuda'):
         net = monopsr.create_net(cfg, device='cpu', seed=seed)
@@ -576,9 +379,9 @@ def check_outputs(mode, packed, losses, metrics, b, n):
 
 
 def main_path(seed):
-    cfg = production_config()
-    batch = synthetic_batch(seed, cfg, EVAL_BATCH, (375, 1242),
-                            C.DEPTH_PAD_SHAPE)
+    cfg = flagship.flagship_config()
+    batch = flagship.synthetic_batch(seed, cfg, EVAL_BATCH, (375, 1242),
+                                     C.DEPTH_PAD_SHAPE)
     t0 = time.time()
     net = monopsr.create_net(cfg, device='cuda', seed=seed)
     print('main path: production net built in {:.1f} s ({:.1f} M params)'
@@ -644,42 +447,6 @@ def assemble(xyz1, xyz2, acc):
             xyz2 * gcol[..., None] - gx1t.transpose(1, 2))
 
 
-def floored_points(xyz1, xyz2, batch_chunk=4):
-    """(B, N) and (B, M) masks of the points whose squared distance to
-    some point of the other cloud is at or under K2's floor of 1e-20
-    (masked slots at the origin): W = plan * 1e10 on such pairs."""
-    rows, cols = [], []
-    for i in range(0, xyz1.shape[0], batch_chunk):
-        pinned = emd_ops._sq_dists(xyz1[i:i + batch_chunk],
-                                   xyz2[i:i + batch_chunk]) \
-            <= emd_ops._DIST_FLOOR
-        rows.append(pinned.any(2))
-        cols.append(pinned.any(1))
-    return torch.cat(rows), torch.cat(cols)
-
-
-def accumulator_errors(got, want, rows, cols):
-    """Per accumulator (grow, gcol, gx2t, gx1t): max |got - want| /
-    max |want| over the points with no floored partner, and for the
-    floored points max |got - want| over max |want| of all points. The
-    1e10 terms make a floored point's grow and gcol the largest values;
-    normalised by them, an error on every other point would pass."""
-    errs = []
-    for g, w, floored in zip(got[1:], want[1:], (rows, cols, rows, cols)):
-        if g.dim() == 3:
-            floored = floored[:, None, :].expand_as(g)
-        diff, scale = (g - w).abs(), w.abs()
-        err = 0.0
-        if bool((~floored).any()):
-            err = float(diff[~floored].max() /
-                        scale[~floored].max().clamp(min=1e-30))
-        if bool(floored.any()):
-            err = max(err, float(diff[floored].max() /
-                                 scale.max().clamp(min=1e-30)))
-        errs.append(err)
-    return errs
-
-
 def pair_errors(got, want):
     """Per cloud pair, the worse of the two clouds' gradients: max |got -
     want| / max |want|, and ||got - want|| / ||want|| (L2)."""
@@ -708,7 +475,8 @@ def compare_k2(label, xyz1, xyz2, cost_rtol, conditioned):
     """K2 against its plain version (the same arithmetic in the same
     order, through (pairs, n, m) matrices), both against a float64 run
     on every pair. Fails unless: the cost is within ``cost_rtol``; each
-    accumulator within 5e-3 (accumulator_errors; tests/test_ops.py:352);
+    accumulator within 5e-3 (``emd_ops.accumulator_errors``;
+    tests/test_ops.py:352);
     and the assembled gradients, per pair, within 2e-2 of their largest
     component of both the plain and the float64 version
     (tests/test_ops.py:379) when ``conditioned``, else within 2e-2 of the
@@ -720,8 +488,8 @@ def compare_k2(label, xyz1, xyz2, cost_rtol, conditioned):
     if not all(bool(torch.isfinite(x).all()) for x in got):
         fail('K2 gave non-finite outputs for {} {}'.format(label, (b, n, m)))
     cost_abs, cost_rel = rel_err(got[0], want[0])
-    rows, cols = floored_points(xyz1, xyz2)
-    acc = accumulator_errors(got, want, rows, cols)
+    rows, cols = emd_ops.floored_points(xyz1, xyz2)
+    acc = emd_ops.accumulator_errors(got, want, rows, cols)
     grads, grads_plain = assemble(xyz1, xyz2, got), assemble(xyz1, xyz2,
                                                              want)
     grads_ref = float64_gradients(xyz1, xyz2)
@@ -919,7 +687,7 @@ def train_reference(seed):
     check, atol 4 lr: an Adam step moves each parameter by about lr
     whatever its gradient."""
     cfg = tiny_train_config()
-    batch = synthetic_batch(seed + 3, cfg, 2, (96, 320), (96, 320))
+    batch = flagship.synthetic_batch(seed + 3, cfg, 2, (96, 320), (96, 320))
     lr = TRAIN_CONFIG['optimizer']['adam_optimizer']['initial_learning_rate']
     runs = []
     for device in ('cpu', 'cuda'):
@@ -1007,9 +775,9 @@ def main_path_train(seed):
     """The production net's train step at train batch 1 in both loss
     configurations; K2 must run once per EMD-loss step and never for the
     production loss, K1 never."""
-    cfg = production_config()
-    batch = synthetic_batch(seed, cfg, TRAIN_BATCH, (375, 1242),
-                            C.DEPTH_PAD_SHAPE)
+    cfg = flagship.flagship_config()
+    batch = flagship.synthetic_batch(seed, cfg, TRAIN_BATCH, (375, 1242),
+                                     C.DEPTH_PAD_SHAPE)
     report = {}
     for name, loss_config, want_k2 in (
             ('production loss', LOSS_CONFIG, 0),
@@ -1644,10 +1412,11 @@ def production_reference(seed):
       and 8 boxes); the bound leaves 3x room over that, and is fixed
       here before any run of this phase on the card.
     Prints the largest deviation per output, both ways."""
-    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
-    cfg16 = production_config()
-    batch = synthetic_batch(seed + 3, cfg32, 1, (375, 1242),
-                            C.DEPTH_PAD_SHAPE)
+    cfg32 = dataclasses.replace(flagship.flagship_config(),
+                                compute_dtype='float32')
+    cfg16 = flagship.flagship_config()
+    batch = flagship.synthetic_batch(seed + 3, cfg32, 1, (375, 1242),
+                                     C.DEPTH_PAD_SHAPE)
     net = monopsr.create_net(cfg32, device='cpu', seed=seed)
     weights = {k: v.clone() for k, v in net.state_dict().items()}
     t0 = time.perf_counter()
@@ -2057,11 +1826,11 @@ def data_parallel_phase(seed, card):
                         'data_parallel')
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
-    cfgs = {'float32': dataclasses.replace(production_config(),
+    cfgs = {'float32': dataclasses.replace(flagship.flagship_config(),
                                            compute_dtype='float32'),
-            'bfloat16': production_config()}
-    batch = synthetic_batch(seed, cfgs['bfloat16'], DP_RANKS, (375, 1242),
-                            C.DEPTH_PAD_SHAPE)
+            'bfloat16': flagship.flagship_config()}
+    batch = flagship.synthetic_batch(seed, cfgs['bfloat16'], DP_RANKS,
+                                     (375, 1242), C.DEPTH_PAD_SHAPE)
     ckpt_dir = os.path.join(base, 'checkpoints')
     net = monopsr.create_net(cfgs['bfloat16'], device='cuda', seed=seed)
     tx, _, use_ema, _ = opt_lib.build_optimizer(TRAIN_CONFIG)
@@ -2570,10 +2339,11 @@ def remat_steps(seed, card):
     emd_ops.emd_distance.launches = 0
     emd_ops.emd_cost_fused.launches = 0
     for batch_size in REMAT_BATCHES:
-        batch = synthetic_batch(seed, production_config(), batch_size,
-                                (375, 1242), C.DEPTH_PAD_SHAPE)
+        batch = flagship.synthetic_batch(seed, flagship.flagship_config(),
+                                         batch_size, (375, 1242),
+                                         C.DEPTH_PAD_SHAPE)
         for policy in REMAT_POLICIES:
-            cfg = dataclasses.replace(production_config(),
+            cfg = dataclasses.replace(flagship.flagship_config(),
                                       remat_towers=policy is not None,
                                       remat_policy=policy or 'unit')
             net = monopsr.create_net(cfg, device='cuda', seed=seed)
@@ -2624,9 +2394,10 @@ def remat_gradients(seed, card):
     not equal, the remat runs' deviation (L2 over all leaves, and the
     worst leaf's largest |diff| over its largest gradient) must not
     exceed the two no-remat runs' own."""
-    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
-    batch = synthetic_batch(seed + 5, cfg32, 2, (375, 1242),
-                            C.DEPTH_PAD_SHAPE)
+    cfg32 = dataclasses.replace(flagship.flagship_config(),
+                                compute_dtype='float32')
+    batch = flagship.synthetic_batch(seed + 5, cfg32, 2, (375, 1242),
+                                     C.DEPTH_PAD_SHAPE)
     before = (torch.backends.cudnn.deterministic,
               torch.backends.cudnn.benchmark,
               torch.are_deterministic_algorithms_enabled(),
@@ -2874,9 +2645,10 @@ def graph_equality_phase(seed, card):
     production loss and with the 'emd' loss, whose K2 launch must be
     captured (once) and so run in every replay; the planted out-of-place
     count must fail the same check."""
-    cfg32 = dataclasses.replace(production_config(), compute_dtype='float32')
-    batches = [synthetic_batch(seed + 30 + i, cfg32, 2, (375, 1242),
-                               C.DEPTH_PAD_SHAPE) for i in range(4)]
+    cfg32 = dataclasses.replace(flagship.flagship_config(),
+                                compute_dtype='float32')
+    batches = [flagship.synthetic_batch(seed + 30 + i, cfg32, 2, (375, 1242),
+                                        C.DEPTH_PAD_SHAPE) for i in range(4)]
     report = {}
     for name, loss_config, planted in (
             ('production loss', LOSS_CONFIG, False),
@@ -2935,10 +2707,11 @@ def graph_timing_phase(seed, card):
     of one graphed dispatch under the profiler."""
     report = {}
     for batch_size in REMAT_BATCHES:
-        batch = synthetic_batch(seed, production_config(), batch_size,
-                                (375, 1242), C.DEPTH_PAD_SHAPE)
+        batch = flagship.synthetic_batch(seed, flagship.flagship_config(),
+                                         batch_size, (375, 1242),
+                                         C.DEPTH_PAD_SHAPE)
         for policy in REMAT_POLICIES:
-            cfg = dataclasses.replace(production_config(),
+            cfg = dataclasses.replace(flagship.flagship_config(),
                                       remat_towers=policy is not None,
                                       remat_policy=policy or 'unit')
             net = monopsr.create_net(cfg, device='cuda', seed=seed)
@@ -2972,7 +2745,7 @@ def graph_timing_phase(seed, card):
             if not all(bool(torch.isfinite(v)) for v in losses.values()):
                 fail('graph timing {} batch {}: losses not finite'.format(
                     policy, batch_size))
-            wall, busy = profile_step(lambda b: graphed(state, b), dispatch,
+            wall, busy, _ = profile_step(lambda b: graphed(state, b), dispatch,
                                       top=4)
             name = '{} batch {}'.format(policy or 'none', batch_size)
             report[name] = dict(
@@ -3258,15 +3031,15 @@ def host_feed_throughput(seed, config_path):
         return KittiDataset(config.dataset_config, 'train')
     alone = {n: loader_rate(dataset(), shape, n) for n in FEED_THREADS}
 
-    cfg = production_config()
+    cfg = flagship.flagship_config()
     net = monopsr.create_net(cfg, device='cuda', seed=seed)
     tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
     step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx, use_ema,
                                    decay, device='cuda')
     state = trainer.create_train_state(net, tx, use_ema)
     graphed = step_graph.GraphedTrainStep(step, 'cuda')
-    dispatch = [synthetic_batch(seed, cfg, 1, (375, 1242),
-                                C.DEPTH_PAD_SHAPE)] * GRAPH_K
+    dispatch = [flagship.synthetic_batch(seed, cfg, 1, (375, 1242),
+                                         C.DEPTH_PAD_SHAPE)] * GRAPH_K
     graphed(state, dispatch)                  # warm-up and capture
     torch.cuda.synchronize()
 
@@ -3389,6 +3162,50 @@ def host_feed_phase(seed, card, loop_report):
                 loop=loop, seconds=seconds)
 
 
+BENCH_REPEATS = 3
+BENCH_AGREEMENT = 0.25    # the bench's K1/K2 ms against phases 3 and 6's
+
+
+def bench_phase(seed, card, kernel_ms):
+    """Phase 19: the port's bench in a subprocess on the card (``run_cli``
+    fails the phase on a non-zero exit: a failed reading or check, a
+    non-finite output, a share of the card above 100%). Its result line
+    is printed; its K1 and K2 medians must lie within BENCH_AGREEMENT of
+    ``kernel_ms`` ({name: ms}, phases 3 and 6's ``time_cuda`` in this
+    run), so that two timers agree on one card."""
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    lines, _, _ = run_cli('bench', ['--repeats', str(BENCH_REPEATS),
+                                    '--seed', str(seed)], '{"metric"')
+    seconds = time.time() - t0
+    results = [line for line in lines if line.startswith('{"metric"')]
+    if not results:
+        fail('bench: no result line')
+    print('bench result: ' + results[-1])
+    result = json.loads(results[-1])
+    bench_ms = {k['name']: k['ms']['median'] for k in result['kernels']}
+    for name, want in kernel_ms.items():
+        if abs(bench_ms[name] - want) > BENCH_AGREEMENT * want:
+            fail('bench: {} {:.3f} ms against {:.3f} ms in the kernel '
+                 'phase, beyond {:.0%}'.format(name, bench_ms[name], want,
+                                               BENCH_AGREEMENT))
+    mfu = result['mfu']
+    print('bench ({}): device_fps {:.3f} (eager {:.3f}), e2e_fps {:.3f}, '
+          'graphed train step {:.3f} ms at batch 1, train_mfu_batch1_pct '
+          '{:.3f}, K1 {:.3f} ms (phase 3: {:.3f}), K2 {:.3f} ms (phase 6: '
+          '{:.3f}); {:.1f} s'.format(
+              card, result['device_fps']['median'],
+              result['eager_forward_fps']['median'],
+              result['e2e_fps']['median'],
+              result['train_batch_curve']['1']['ms_per_step']['median'],
+              mfu['train_mfu_batch1_pct'], bench_ms['emd_cost_fused'],
+              kernel_ms['emd_cost_fused'], bench_ms['emd_loss'],
+              kernel_ms['emd_loss'], seconds))
+    return dict(seconds=seconds, kernel_ms=bench_ms,
+                device_fps=result['device_fps']['median'],
+                train_mfu_batch1_pct=mfu['train_mfu_batch1_pct'])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--seed', type=int, default=0,
@@ -3455,6 +3272,8 @@ def main():
     pretrained_report = pretrained_remat_phase(args.seed, card)
     graph_report = steps_per_dispatch_phase(args.seed, card, loop_report)
     feed_report = host_feed_phase(args.seed, card, loop_report)
+    bench_report = bench_phase(args.seed, card, {'emd_cost_fused': ms,
+                                                 'emd_loss': ms2})
     emd_graph = graph_report['equality']['emd loss']
 
     b, n, m = prod['shape']
@@ -3487,6 +3306,7 @@ def main():
         'cluster': emd_ops.cluster_size('emd_cost_fused', b, n, m),
         'ms': ms,
         'plain_ms': plain_ms,
+        'bench_ms': bench_report['kernel_ms']['emd_cost_fused'],
         'bound_ms': bound_ms,
         'bound_by': bound_by,
         'library_ms': None,
@@ -3524,6 +3344,7 @@ def main():
         'cluster': emd_ops.cluster_size('emd_loss', b2, n2, m2),
         'ms': ms2,
         'plain_ms': plain_ms2,
+        'bench_ms': bench_report['kernel_ms']['emd_loss'],
         'bound_ms': bound2_ms,
         'bound_by': bound2_by,
         'library_ms': None,
@@ -3546,6 +3367,7 @@ def main():
     print('pretrained trunk and remat: ' + json.dumps(pretrained_report))
     print('steps_per_dispatch: ' + json.dumps(graph_report))
     print('host feed: ' + json.dumps(feed_report))
+    print('bench: ' + json.dumps(bench_report))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

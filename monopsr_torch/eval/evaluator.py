@@ -182,6 +182,15 @@ class Evaluator:
         device: CUDA unless 'cpu' is asked for; raises when CUDA is asked
             for and absent.
 
+    Attributes:
+        stage_times: ``utils.prefetch.StageTimes`` of the last checkpoint's
+            pass (``run_checkpoint_once``), per sample: 'assembly' (KITTI
+            reads, merge, ``prepare_sample``), 'dispatch' (stacking and
+            launching a group's step), 'pull' (a group's device work and
+            its copies to the host, from CUDA events; per row of the
+            group, pad rows included, as the JAX bench counts it),
+            'format' and 'write' (the predictions).
+
     Raises ValueError when ``eval_data_parallel`` (or ``data_parallel``),
     clamped to the visible cards, is above 1 and this process is not one
     of the ranks ``parallel.data_parallel.launch`` starts. Inside a
@@ -247,6 +256,7 @@ class Evaluator:
                                          self.loss_config, eval_mode,
                                          device=self.device)
         self._template_state = None
+        self.stage_times = prefetch.StageTimes()
 
         # Ledger of evaluated checkpoints
         os.makedirs(config.exp_output_dir, exist_ok=True)
@@ -368,6 +378,7 @@ class Evaluator:
         loss_sums, loss_counts = {}, {}
         metric_values = {}
         feed_times, infer_times = [], []
+        stages = self.stage_times = prefetch.StageTimes()
 
         num_evaluated = 0
         t_epoch = time.perf_counter()
@@ -393,11 +404,15 @@ class Evaluator:
                 arr = np.asarray(value)[0:num_objs]
                 metric_values.setdefault(name, []).append(arr.ravel())
 
+            t0 = time.perf_counter()
             pred_dict = predictions.format_predictions(
                 self.cfg, outputs, sample, dataset, self.eval_mode,
                 post_process_cen_x=self.post_process_cen_x)
+            t1 = time.perf_counter()
             predictions.save_predictions(
                 pred_dict, sample[C.SAMPLE_NAME], output_dirs)
+            stages.add('format', t1 - t0)
+            stages.add('write', time.perf_counter() - t1)
             num_evaluated += 1
             if num_evaluated == 1:
                 print('first sample saved at step {}'.format(global_step),
@@ -413,11 +428,16 @@ class Evaluator:
                         {k: v[i] for k, v in metrics.items()})
 
         eval_batch = self.eval_batch
+
+        def pulled(dt, n):
+            """``n`` groups whose spans from launch to host took ``dt`` s
+            each on average."""
+            infer_times.extend([dt / eval_batch] * (n * eval_batch))
+            stages.add('pull', dt * n, n * eval_batch)
+
         pipe = pipeline.BatchedPullPipeline(
             process_group, pull_batch=self.pull_batch,
-            on_pull_time=lambda dt, n: infer_times.extend(
-                [dt / eval_batch] * (n * eval_batch))) \
-            if is_main else None
+            on_pull_time=pulled) if is_main else None
 
         num_groups = 0
         share = eval_batch // world
@@ -427,6 +447,7 @@ class Evaluator:
             by repeating its last row); rank 0 hands the gathered rows to
             the pipeline with the group's host samples."""
             nonlocal num_groups
+            t0 = time.perf_counter()
             padded = device_rows + [device_rows[-1]] * (share -
                                                         len(device_rows))
             batch = stack_samples(padded)
@@ -441,6 +462,7 @@ class Evaluator:
                 out = _gather_outputs(out)
             if is_main:
                 pipe.add(group_samples, out, start)
+            stages.add('dispatch', time.perf_counter() - t0, len(host_rows))
             num_groups += 1
 
         # Ordered producer pool: sample assembly (KITTI IO, MSCNN merge,
@@ -458,7 +480,9 @@ class Evaluator:
             if self.eval_mode == 'test':
                 # Inference needs no GT arrays on the device
                 device_sample = monopsr.strip_to_net_inputs(device_sample)
-            feed_times.append(time.time() - t0)
+            seconds = time.time() - t0
+            feed_times.append(seconds)
+            stages.add('assembly', seconds)
             return sample, device_sample
 
         # This rank's rows of each group; a rank with no row in a tail

@@ -463,6 +463,43 @@ def emd_distance(xyz1, xyz2, batch_chunk=4):
 emd_distance.launches = 0
 
 
+def floored_points(xyz1, xyz2, batch_chunk=4):
+    """(B, N) and (B, M) masks of the points whose squared distance to
+    some point of the other cloud is at or under K2's floor of 1e-20
+    (masked slots at the origin): W = plan * 1e10 on such pairs."""
+    rows, cols = [], []
+    for i in range(0, xyz1.shape[0], batch_chunk):
+        pinned = _sq_dists(xyz1[i:i + batch_chunk],
+                           xyz2[i:i + batch_chunk]) <= _DIST_FLOOR
+        rows.append(pinned.any(2))
+        cols.append(pinned.any(1))
+    return torch.cat(rows), torch.cat(cols)
+
+
+def accumulator_errors(got, want, rows, cols):
+    """Per accumulator (grow, gcol, gx2t, gx1t) of two (cost, grow, gcol,
+    gx2t, gx1t) tuples: max |got - want| / max |want| over the points
+    with no floored partner (``floored_points``' ``rows`` and ``cols``),
+    and for the floored points max |got - want| over max |want| of all
+    points. The 1e10 terms make a floored point's grow and gcol the
+    largest values; normalised by them, an error on every other point
+    would pass."""
+    errs = []
+    for g, w, floored in zip(got[1:], want[1:], (rows, cols, rows, cols)):
+        if g.dim() == 3:
+            floored = floored[:, None, :].expand_as(g)
+        diff, scale = (g - w).abs(), w.abs()
+        err = 0.0
+        if bool((~floored).any()):
+            err = float(diff[~floored].max() /
+                        scale[~floored].max().clamp(min=1e-30))
+        if bool(floored.any()):
+            err = max(err, float(diff[floored].max() /
+                                 scale.max().clamp(min=1e-30)))
+        errs.append(err)
+    return errs
+
+
 # ---------------------------------------------------------------------------
 # NumPy float64 oracle (direct transcription of the algorithm spec)
 # ---------------------------------------------------------------------------

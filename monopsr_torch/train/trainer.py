@@ -358,7 +358,7 @@ def steps_per_dispatch(train_config):
     return max(1, int(train_config.get('steps_per_dispatch', 1) or 1))
 
 
-def _eager_steps(train_step):
+def eager_steps(train_step):
     """A dispatch that takes its batches' steps one by one: (state,
     batches) -> (state, losses of the last step)."""
     def run(state, batches):
@@ -441,7 +441,7 @@ def train(config, dataset, max_steps=None, log_every=None, device=None):
     if k_max > 1 and device.type == 'cuda' and world == 1:
         dispatch = step_graph.GraphedTrainStep(train_step, device)
     else:
-        dispatch = _eager_steps(train_step)
+        dispatch = eager_steps(train_step)
         if k_max > 1 and world > 1 and is_main:
             print('steps_per_dispatch {}: under {} data-parallel ranks the '
                   'steps of a dispatch run eagerly (a CUDA graph of the '

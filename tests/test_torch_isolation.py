@@ -13,8 +13,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml',
             'sklearn', 'matplotlib', 'monopsr_tpu')
 
+# The JAX system's entry points at the root, which neither the port nor
+# chip_smoke.py may import (the port's are experiments.flagship and
+# experiments.bench)
+_ROOT_ENTRY_POINTS = ('__graft_entry__', 'bench')
+
 # Modules added with the converters, remat, the trainer's hooks, the
-# evaluation tools, the drawing helpers, the demos and the M15 tail
+# evaluation tools, the drawing helpers, the demos, the M15 tail and the
+# bench
 _LATER_MODULES = (
     'tools.convert_tf_resnet', 'tools.convert_torch_resnet',
     'tools.odapi_manifest', 'tools.save_kitti_predictions',
@@ -23,12 +29,12 @@ _LATER_MODULES = (
     'demos.show_jittered_boxes_2d', 'demos.view_instance_masks',
     'core_utils.distance_metrics', 'core_utils.format_checker',
     'core_utils.label_cluster_utils', 'core_utils.instance_metrics',
-    'geometry.planes')
+    'geometry.planes', 'experiments.flagship', 'experiments.bench')
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
 BLOCKED = {blocked!r}
-for name in BLOCKED:
+for name in BLOCKED + {roots!r}:
     sys.modules[name] = None          # any import of these raises
 import monopsr_torch
 names = ['monopsr_torch'] + [
@@ -44,7 +50,7 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED
                 and sys.modules[m] is not None)
 print(len(names), leaked)
-""".format(blocked=_BLOCKED, later=_LATER_MODULES)
+""".format(blocked=_BLOCKED, later=_LATER_MODULES, roots=_ROOT_ENTRY_POINTS)
 
 # Each CLI of the converters, the tools and the demos parses its flags
 # with the same modules blocked
@@ -74,11 +80,12 @@ def test_package_imports_without_jax_or_reference():
     the data-preparation tools (monopsr_torch.tools), the data-parallel
     ranks (monopsr_torch.parallel), the accuracy gate
     (monopsr_torch.experiments.accuracy_gate), the converters, the
-    trainer's hooks, the drawing helpers, the demos and the M15 tail
-    included (and chip_smoke.py), imports with jax, flax, optax, cv2,
-    PIL, yaml, scikit-learn, matplotlib and monopsr_tpu made
-    unimportable (the drawing helpers and demos import matplotlib when
-    they draw)."""
+    trainer's hooks, the drawing helpers, the demos, the M15 tail and
+    the bench (experiments.flagship and experiments.bench) included (and
+    chip_smoke.py), imports with jax, flax, optax, cv2, PIL, yaml,
+    scikit-learn, matplotlib, monopsr_tpu and the JAX system's root
+    entry points (__graft_entry__.py, bench.py) made unimportable (the
+    drawing helpers and demos import matplotlib when they draw)."""
     out = subprocess.run([sys.executable, '-c', _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -102,7 +109,8 @@ def test_sources_name_no_jax():
                     text = f.read()
                 for banned in ('import jax', 'from jax', 'import flax',
                                'import optax', 'from monopsr_tpu',
-                               'import monopsr_tpu'):
+                               'import monopsr_tpu', 'import __graft_entry__',
+                               'from __graft_entry__'):
                     assert banned not in text, (name, banned)
 
 

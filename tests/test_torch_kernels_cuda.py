@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from monopsr_torch.experiments import flagship
 from monopsr_torch.ops import emd
 
 
@@ -264,8 +265,8 @@ def test_graphed_dispatch_matches_eager_steps(loss):
     _cuda()
     import chip_smoke
     cfg = chip_smoke.tiny_train_config()
-    batches = [chip_smoke.synthetic_batch(40 + i, cfg, 2, (96, 320),
-                                          (96, 320)) for i in range(4)]
+    batches = [flagship.synthetic_batch(40 + i, cfg, 2, (96, 320),
+                                        (96, 320)) for i in range(4)]
     loss_config = {'production': chip_smoke.LOSS_CONFIG,
                    'emd': chip_smoke.EMD_LOSS_CONFIG}[loss]
     got = chip_smoke.graph_against_eager(cfg, loss_config, batches, 0, 2)

@@ -13,6 +13,13 @@ the JAX module (a function, a class or an assigned name, read with
 port module, or have an entry in ``NAME_REASONS`` saying where the port
 keeps it or why it has none. An entry for a name that the port defines
 after all, or that the JAX module no longer has, fails too.
+
+The JAX system's entry points outside its package are held the same
+way: each Python file at the repository's root that imports JAX or the
+JAX package, and the scripts named in ``ENTRY_POINTS``, must map there
+to a module of the port, whose public names are checked against
+``ENTRY_NAME_REASONS`` as a package module's are against
+``NAME_REASONS``.
 """
 
 import ast
@@ -74,10 +81,66 @@ NAME_REASONS = {
     'train/trainer.py:stack_samples':
         'eval/evaluator.py stack_samples, which the trainer and the '
         'evaluator share',
-    'utils/prefetch.py:StageTimes':
-        'no module of the JAX package uses it; eval/pipeline.py measures '
-        'the feed and inference times of each image itself',
 }
+
+
+# The JAX system's entry points outside monopsr_tpu/ -> their counterpart
+# under monopsr_torch/
+ENTRY_POINTS = {
+    'bench.py': 'experiments/bench.py',
+    '__graft_entry__.py': 'experiments/flagship.py',
+    'scripts/bench_ops.py': 'experiments/bench.py',
+    'scripts/accuracy_gate.py': 'experiments/accuracy_gate.py',
+}
+
+# 'entry point:name' -> where the port keeps the name, or why it has none
+ENTRY_NAME_REASONS = {
+    'bench.py:BASELINE_FPS':
+        'the reference paper\'s ~5 frames/s on a desktop GPU of 2019; the '
+        'port\'s bench reports its own rates on the H100 and compares '
+        'with nothing taken elsewhere',
+    'bench.py:V5E_BF16_PEAK_FLOPS':
+        'the peak of a TPU v5e; the port measures against one H100 SXM, '
+        'H100_BF16_PEAK_FLOPS',
+    'bench.py:bench_train_step_scanned':
+        'K steps in one lax.scan program; the port\'s counterpart is '
+        'bench_train_step_graphed, K replays of a CUDA graph of the step '
+        '(train/step_graph.py) per host dispatch',
+    'bench.py:best_of':
+        'the port reports every timed reading as the median and quartiles '
+        'of its repeats (utils/profiling.spread), not the best pass',
+    'bench.py:measure_d2h_mbps':
+        'the device-to-host rate of the remote TPU link, which bounded the '
+        'JAX bench\'s e2e rate; the card\'s copies are in the e2e pull '
+        'stage',
+    'scripts/bench_ops.py:B':
+        'the kernels reading takes its shapes from the config: boxes '
+        '(num_boxes) for K2 and Chamfer, eval batch x boxes for K1',
+    'scripts/bench_ops.py:N':
+        'the kernels reading takes its points from the config\'s ROI '
+        '(map_roi_size: 48 x 48 = 2304)',
+    '__graft_entry__.py:DRYRUN_LOSS_CONFIG':
+        'flagship.loss_config() reads the loss config from the YAML, where '
+        'the JAX entry keeps a copy of it',
+    '__graft_entry__.py:dryrun_multichip':
+        'parallel/data_parallel.py runs the ranks, and chip_smoke.py phase '
+        '14 checks two of them against one process on the card',
+}
+
+
+def _imports_jax(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [alias.name.split('.')[0] for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots = [node.module.split('.')[0]]
+        else:
+            continue
+        if {'jax', 'monopsr_tpu'} & set(roots):
+            return True
+    return False
 
 
 def _public_names(path):
@@ -147,3 +210,41 @@ def test_every_name_reason_names_a_module_with_a_counterpart():
     modules = {key.split(':')[0] for key in NAME_REASONS}
     assert sorted(modules - set(_jax_modules())) == []
     assert sorted(modules & set(NO_COUNTERPART)) == []
+
+
+def test_root_entry_points_of_the_jax_system_are_mapped():
+    roots = sorted(name for name in os.listdir(REPO)
+                   if name.endswith('.py') and
+                   _imports_jax(os.path.join(REPO, name)))
+    assert roots, 'no JAX entry point at the root'
+    assert sorted(set(roots) - set(ENTRY_POINTS)) == [], (
+        'a JAX entry point at the root has no ENTRY_POINTS counterpart')
+
+
+@pytest.mark.parametrize('entry', sorted(ENTRY_POINTS))
+def test_entry_point_names_have_port_counterparts_or_reasons(entry):
+    port = os.path.join(PORT_ROOT, ENTRY_POINTS[entry])
+    assert _imports_jax(os.path.join(REPO, entry))
+    assert os.path.exists(port), port
+    jax_names = _public_names(os.path.join(REPO, entry))
+    port_names = _public_names(port)
+    missing = sorted(name for name in jax_names - port_names
+                     if '{}:{}'.format(entry, name) not in
+                     ENTRY_NAME_REASONS)
+    assert missing == [], (
+        '{} names {} that monopsr_torch/{} does not define and '
+        'ENTRY_NAME_REASONS does not explain'.format(
+            entry, missing, ENTRY_POINTS[entry]))
+    for key, reason in ENTRY_NAME_REASONS.items():
+        entry_point, name = key.split(':')
+        if entry_point == entry:
+            assert name in jax_names, '{}: no longer there'.format(key)
+            assert name not in port_names, (
+                '{} is ported; remove its ENTRY_NAME_REASONS entry'.format(
+                    key))
+            assert reason.strip()
+
+
+def test_every_entry_name_reason_names_an_entry_point():
+    assert sorted({key.split(':')[0] for key in ENTRY_NAME_REASONS} -
+                  set(ENTRY_POINTS)) == []
