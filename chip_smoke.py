@@ -61,9 +61,11 @@ Phases, any failure of which exits non-zero:
 10. eval reference: the port's ``Evaluator`` on a tiny float32 copy of
    the production config on the fixture's val split, at eval batch 3,
    from one seeded checkpoint written by ``save_checkpoint``, on the card
-   and on the CPU: box_3d txts within 1e-4, each box's EMD metric (K1
+   (its eval step a CUDA graph, ``eval/step_graph.py``) and on the CPU
+   (the eager step): box_3d txts within 1e-4, each box's EMD metric (K1
    on the card, the plain version on the CPU) within 1e-4 relative, and
-   K1 launched once per dispatch group.
+   K1 launched once per dispatch group as the evaluator counts it (a
+   launch captured in the graph runs once per replay).
 11. eval CLIs: ``python -m monopsr_torch.experiments.run_evaluation``
    (val split, native AP on) over phase 9's production-width checkpoints
    2, 4 and 6, then ``run_inference`` at step 6 on the val and the test
@@ -71,8 +73,12 @@ Phases, any failure of which exits non-zero:
    (only ``--repeated`` writes it, as in JAX), a box_3d txt per valid
    sample, KITTI files of 16-field CRLF rows,
    metrics CSVs, finite losses, AP lines per step in both results
-   files, a KITTI file per test sample, and K1 launched once per group
-   (its count printed by the evaluator). Printed: ms per image, feed and
+   files, a KITTI file per test sample, K1 launched once per group
+   (its count printed by the evaluator), and the graphed eval step's
+   warm-up and capture each printed once per process (no capture in a
+   process of one group). Printed: ms per image at steps 2, 4 and 6
+   beside the eager step's, the first checkpoints' seconds split into
+   the graph's warm-up call, its capture and the rest, feed and
    inference medians, seconds to the first sample, restore and
    native-eval seconds, the AP lines of step 6. data/outputs/
    chip_smoke_train/ is removed at its end.
@@ -126,9 +132,8 @@ Phases, any failure of which exits non-zero:
    leaf of the state bit for bit or within rtol 2e-5 / atol 1e-6, with
    the production loss and with the 'emd' loss (K2 captured once and
    replayed); the count replaced instead of updated in place must fail
-   it. (b) bfloat16 at train batches 1 and 8 per remat policy: eager
-   K = 1 against the graph at K = 4, ms/step, peak GB, capture seconds,
-   the device-busy share of a graphed dispatch. (c) the training CLI
+   it. (b), the graphed step per batch and remat policy, is the bench's
+   ``train_batch_curve`` (phase 19). (c) the training CLI
    with ``steps_per_dispatch: 4`` on phase 9's config for 6 steps: logs
    at 4, 5, 6, checkpoints at 4 and 6; loop ms/step against phase 9's.
    (d) ``profile_step`` forces one step per dispatch (tiny config).
@@ -151,6 +156,23 @@ Phases, any failure of which exits non-zero:
    reading finite, every share of the card at most 100%, K1 and K2
    against their plain versions), which is printed; its K1 and K2
    medians must lie within 25% of phases 3 and 6's times in this run.
+   Its ``train_batch_curve`` captures and replays the train step under
+   each tower remat policy (none at batches 1, 2, 4 and 8; 'unit' and
+   'conv_outs' at 8) and checks its losses finite.
+20. eval graph: the eval step as one CUDA graph
+   (``eval.step_graph.GraphedEvalStep``, what the evaluator runs on the
+   card) at production width in val mode against the eager
+   ``make_eval_step``: three synthetic groups of eval batch 4 at the slot
+   buckets 8, 16 and 32, for two seeded sets of weights restored into
+   one net by ``load_state_dict`` through one capture; in float32 under
+   deterministic algorithms every output, loss and metric bit for bit,
+   in bfloat16 the largest difference within phase 12's bound; a restore
+   with ``assign=True`` must make the next replay raise; K1 captured once,
+   its launch x replays equal to the groups run. Printed: the warm-up
+   and capture seconds, beside phase 19's reading of the val step's ms
+   through the graph and eagerly (the bench's ``eval_val_step_ms``).
+
+Each phase's seconds are printed as it ends and together at the end.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor monopsr_tpu.
@@ -181,7 +203,8 @@ from monopsr_torch import config as config_lib
 from monopsr_torch import constants as C
 from monopsr_torch import weights
 from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
-from monopsr_torch.eval import evaluator, native_eval
+from monopsr_torch.eval import evaluator, native_eval, pipeline
+from monopsr_torch.eval import step_graph as eval_graph
 from monopsr_torch.experiments import flagship
 from monopsr_torch.models import monopsr
 from monopsr_torch.models.monopsr_net import NetConfig
@@ -1130,8 +1153,10 @@ def eval_reference(seed):
                                         os.path.join(base, device), device)
         emd_ops.emd_cost_fused.launches = 0
         result, = ev.run_latest_checkpoints([1])
+        # K1's launches as the evaluator counts them: a launch captured in
+        # its eval step's graph runs once per replay
         runs[device] = dict(config=dev_config, result=result,
-                            launches=emd_ops.emd_cost_fused.launches)
+                            launches=ev.kernel_launches['emd_cost_fused'])
     cpu, card = runs['cpu'], runs['cuda']
     valid = card['result']['num_samples']
     groups = -(-valid // EVAL_TINY_BATCH)
@@ -1182,7 +1207,11 @@ def cli_numbers(lines):
                       r'(\d+) in (\d+) groups', int),
         native_s=grab(r'native eval of step (\d+): ([0-9.]+) s'),
         evaluated=grab(r'Evaluated (\d+) samples at step (\d+) in '
-                       r'([0-9.]+) s'))
+                       r'([0-9.]+) s'),
+        warm_up_s=[g[0] for g in grab(
+            r'eval step graph: warm-up ([0-9.]+) s')],
+        capture_s=[g[0] for g in grab(
+            r'eval step graph: capture ([0-9.]+) s')])
 
 
 def ap_blocks(path):
@@ -1304,8 +1333,28 @@ def eval_cli_phase(card):
         fail('eval CLIs: inference evaluated val {} test {}, {} test rows'
              .format(inf['evaluated'], test['evaluated'], test_rows))
 
+    # Once per process: the graphed step's warm-up call (the first group)
+    # and its capture (the second; a process that runs one group captures
+    # nothing)
+    for label, numbers in (('val', val), ('inference val', inf),
+                           ('inference test', test)):
+        captures = int(sum(g for _, _, g in numbers['launches']) > 1)
+        if (len(numbers['warm_up_s']) != 1 or
+                len(numbers['capture_s']) != captures):
+            fail('eval CLIs: {} printed the eval step graph\'s warm-up {} '
+                 'and capture {} times, want 1 and {}'.format(
+                     label, len(numbers['warm_up_s']),
+                     len(numbers['capture_s']), captures))
+
     def ms_per_image(numbers):
         return [1e3 * secs / n for n, _, secs in numbers['evaluated']]
+
+    # The seconds of the first two checkpoints' passes: the warm-up call
+    # runs in the first, the capture in the first with two groups or more,
+    # else in the second
+    (n2, _, s2), (n4, _, s4) = val['evaluated'][:2]
+    warm_up_s, capture_s = val['warm_up_s'][0], val['capture_s'][0]
+    capture_step = 2 if val['launches'][0][2] > 1 else 4
 
     report = dict(
         val_ms_per_image=ms_per_image(val),
@@ -1321,6 +1370,17 @@ def eval_cli_phase(card):
         restore_s={'val': val['restore_s'], 'inference val':
                    inf['restore_s'], 'inference test': test['restore_s']},
         native_eval_s=val['native_s'],
+        graph_warm_up_s={'val': warm_up_s,
+                         'inference val': inf['warm_up_s'][0],
+                         'inference test': test['warm_up_s'][0]},
+        graph_capture_s={'val': capture_s,
+                         'inference val': inf['capture_s'],
+                         'inference test': test['capture_s']},
+        capture_step=capture_step,
+        step2_s=dict(total=s2, warm_up=warm_up_s, rest=s2 - warm_up_s - (
+            capture_s if capture_step == 2 else 0.0)),
+        step4_s=dict(total=s4, rest=s4 - (
+            capture_s if capture_step == 4 else 0.0)),
         k1_launches=[k1 for k1, _, _ in val['launches']],
         groups=[g for _, _, g in val['launches']],
         valid_val_samples=len(valid), kitti_rows=kitti_rows,
@@ -1336,6 +1396,18 @@ def eval_cli_phase(card):
               ['{:.3f}'.format(x) for x in report['val_ms_per_image']],
               report['inference_val_ms_per_image'],
               report['test_ms_per_image'], card))
+    print('eval CLIs: run_evaluation val, ms per image at steps 2, 4, 6: '
+          '{} (the eager eval step read 573.0, 51.8, 53.8 on an H100 80GB '
+          'HBM3 at 700 W); step 2: {:.3f} s over {} images, step 4: {:.3f} '
+          's over {}; the graphed step\'s warm-up call {:.3f} s (step 2), '
+          'capture {:.3f} s (step {}); the rest of step 2 {:.3f} s, of step '
+          '4 {:.3f} s; inference: val warm-up {:.3f} s and capture {} s, '
+          'test warm-up {:.3f} s and capture {} s; {}'.format(
+              ['{:.1f}'.format(x) for x in report['val_ms_per_image']],
+              s2, n2, s4, n4, warm_up_s, capture_s, capture_step,
+              report['step2_s']['rest'], report['step4_s']['rest'],
+              inf['warm_up_s'][0], inf['capture_s'], test['warm_up_s'][0],
+              test['capture_s'], card))
     print('eval CLIs: per image, median over each checkpoint: val feed ms '
           '{} inference ms {}; inference CLI val feed {:.3f} inference '
           '{:.3f} ms; test feed {:.3f} inference {:.3f} ms; {}'.format(
@@ -1726,7 +1798,7 @@ def dp_rank(device, cfgs, checkpoint_dir, batch, eval_path, eval_ckpt_dir,
     result = ev.run_latest_checkpoints([1])[0]
     with open(os.path.join(out_dir, 'eval_rank{}.json'.format(rank)),
               'w') as f:
-        json.dump({'launches': emd_ops.emd_cost_fused.launches,
+        json.dump({'launches': ev.kernel_launches['emd_cost_fused'],
                    'eval_batch': ev.eval_batch}, f)
     if rank == 0:
         np.save(os.path.join(out_dir, 'eval_emd.npy'),
@@ -1939,7 +2011,7 @@ def data_parallel_phase(seed, card):
                                 os.path.join(base, 'eval_one'), 'cuda')
     emd_ops.emd_cost_fused.launches = 0
     result = ev.run_latest_checkpoints([1])[0]
-    one_launches = emd_ops.emd_cost_fused.launches
+    one_launches = ev.kernel_launches['emd_cost_fused']
     valid = result['num_samples']
     eval_batch = -(-EVAL_TINY_BATCH // DP_RANKS) * DP_RANKS
     groups = -(-valid // eval_batch)
@@ -2499,8 +2571,7 @@ def pretrained_remat_phase(seed, card):
 # Phase 17: steps_per_dispatch, a CUDA graph of the train step
 # --------------------------------------------------------------------------
 
-GRAPH_K = 4             # steps per dispatch of the graphed timing and CLI
-GRAPH_DISPATCHES = 3    # timed dispatches after the first
+GRAPH_K = 4             # steps per dispatch of the graphed CLI
 GRAPH_RTOL, GRAPH_ATOL = 2e-5, 1e-6   # tests/test_steps_per_dispatch.py:44
 
 
@@ -2592,14 +2663,15 @@ def graph_against_eager(cfg, loss_config, batches, seed, k, planted=False):
                 else:
                     graphed = step_graph.GraphedTrainStep(step, 'cuda')
                     captured = {}
-                    capture = graphed._capture
+                    capture = graphed.capture
 
-                    def counted_capture(state, capture=capture,
-                                        captured=captured):
+                    def counted_capture(fn, capture=capture,
+                                        captured=captured, **kwargs):
                         k2 = emd_ops.emd_distance.launches
-                        capture(state)
+                        out = capture(fn, **kwargs)
                         captured['k2'] = emd_ops.emd_distance.launches - k2
-                    graphed._capture = counted_capture
+                        return out
+                    graphed.capture = counted_capture
                     for i in range(0, len(batches), k):
                         state, losses = graphed(state, batches[i:i + k])
                 torch.cuda.synchronize()
@@ -2697,79 +2769,6 @@ def graph_equality_phase(seed, card):
     return report
 
 
-def graph_timing_phase(seed, card):
-    """Phase 17(b): the production train step (bfloat16, production loss,
-    Adam + EMA) at train batches 1 and 8, per remat policy: eager K = 1
-    (one warm-up step, REMAT_STEPS timed) against the graph at K =
-    GRAPH_K on the same net and state (a first dispatch holding the
-    warm-up step and the capture, then GRAPH_DISPATCHES timed ones):
-    ms/step, peak GB of each, capture seconds, and the device-busy share
-    of one graphed dispatch under the profiler."""
-    report = {}
-    for batch_size in REMAT_BATCHES:
-        batch = flagship.synthetic_batch(seed, flagship.flagship_config(),
-                                         batch_size, (375, 1242),
-                                         C.DEPTH_PAD_SHAPE)
-        for policy in REMAT_POLICIES:
-            cfg = dataclasses.replace(flagship.flagship_config(),
-                                      remat_towers=policy is not None,
-                                      remat_policy=policy or 'unit')
-            net = monopsr.create_net(cfg, device='cuda', seed=seed)
-            tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
-            step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx,
-                                           use_ema, decay, device='cuda')
-            state = trainer.create_train_state(net, tx, use_ema)
-            state, _ = step(state, batch)            # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            for _ in range(REMAT_STEPS):
-                state, losses = step(state, batch)
-            torch.cuda.synchronize()
-            eager_ms = (time.perf_counter() - t0) / REMAT_STEPS * 1e3
-            eager_gb = torch.cuda.max_memory_allocated() / 1e9
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-
-            graphed = step_graph.GraphedTrainStep(step, 'cuda')
-            dispatch = [batch] * GRAPH_K
-            state, _ = graphed(state, dispatch)      # warm-up and capture
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(GRAPH_DISPATCHES):
-                state, losses = graphed(state, dispatch)
-            torch.cuda.synchronize()
-            graph_ms = ((time.perf_counter() - t0) /
-                        (GRAPH_DISPATCHES * GRAPH_K) * 1e3)
-            graph_gb = torch.cuda.max_memory_allocated() / 1e9
-            if not all(bool(torch.isfinite(v)) for v in losses.values()):
-                fail('graph timing {} batch {}: losses not finite'.format(
-                    policy, batch_size))
-            wall, busy, _ = profile_step(lambda b: graphed(state, b), dispatch,
-                                      top=4)
-            name = '{} batch {}'.format(policy or 'none', batch_size)
-            report[name] = dict(
-                eager_ms=eager_ms, graph_ms=graph_ms,
-                speedup=eager_ms / graph_ms, eager_peak_gb=eager_gb,
-                graph_peak_gb=graph_gb,
-                capture_s=graphed.capture_seconds,
-                dispatch_wall_ms=wall, dispatch_busy_ms=busy,
-                busy_share=busy / wall if busy else None)
-            print('graph timing, remat {} ({}): eager K=1 {:.3f} ms/step, '
-                  'peak {:.3f} GB; graph K={} {:.3f} ms/step ({:.2f}x), '
-                  'peak {:.3f} GB, capture {:.3f} s; one graphed dispatch '
-                  'under the profiler: wall {:.3f} ms, device busy {}'
-                  .format(name, card, eager_ms, eager_gb, GRAPH_K,
-                          graph_ms, eager_ms / graph_ms, graph_gb,
-                          graphed.capture_seconds, wall,
-                          'not measured (no device time in the trace)'
-                          if not busy else '{:.3f} ms ({:.1%})'.format(
-                              busy, busy / wall)))
-            del net, state, step, graphed, losses
-            torch.cuda.empty_cache()
-    return report
-
-
 GRAPH_LOOP_NAME = 'chip_smoke_train_k4'
 
 
@@ -2864,12 +2863,13 @@ def profile_forces_one_step(seed, card):
 
 
 def steps_per_dispatch_phase(seed, card, loop_report):
-    """Phase 17: (a) graph against eager, (b) timing, (c) the CLI at
-    K = GRAPH_K, (d) profile_step forces K = 1."""
+    """Phase 17: (a) graph against eager, (c) the CLI at K = GRAPH_K,
+    (d) profile_step forces K = 1. (The graphed step's ms/step and peak
+    GB per batch and remat policy are the bench's ``train_batch_curve``,
+    phase 19.)"""
     t0 = time.time()
     emd_ops.emd_cost_fused.launches = 0
     equality = graph_equality_phase(seed, card)
-    timing = graph_timing_phase(seed, card)
     loop = graph_loop_phase(card, loop_report)
     profile = profile_forces_one_step(seed, card)
     k1 = emd_ops.emd_cost_fused.launches
@@ -2878,8 +2878,8 @@ def steps_per_dispatch_phase(seed, card, loop_report):
              'none (no val eval on this path)'.format(k1))
     seconds = time.time() - t0
     print('steps_per_dispatch: {:.1f} s'.format(seconds))
-    return dict(equality=equality, timing=timing, loop=loop,
-                profile=profile, k1_launches=k1, seconds=seconds)
+    return dict(equality=equality, loop=loop, profile=profile,
+                k1_launches=k1, seconds=seconds)
 
 
 # --------------------------------------------------------------------------
@@ -3190,6 +3190,20 @@ def bench_phase(seed, card, kernel_ms):
                  'phase, beyond {:.0%}'.format(name, bench_ms[name], want,
                                                BENCH_AGREEMENT))
     mfu = result['mfu']
+    curve = result['train_batch_curve']
+    print('bench ({}): graphed train step at batch 8, ms/step (peak GB): '
+          '{}'.format(card, ', '.join(
+              '{} {:.3f} ({:.2f})'.format(
+                  curve[key]['remat'] or 'no remat',
+                  curve[key]['ms_per_step']['median'],
+                  curve[key]['peak_gb'])
+              for key in ('8', '8r', '8c'))))
+    val_step = result['eval_val_step_ms']
+    print('bench ({}): val eval step {:.3f} ms graphed, {:.3f} ms eager '
+          '(eval_dispatch_overhead_ms {:.3f})'.format(
+              card, val_step['graphed']['median'],
+              val_step['eager']['median'],
+              result['eval_dispatch_overhead_ms']))
     print('bench ({}): device_fps {:.3f} (eager {:.3f}), e2e_fps {:.3f}, '
           'graphed train step {:.3f} ms at batch 1, train_mfu_batch1_pct '
           '{:.3f}, K1 {:.3f} ms (phase 3: {:.3f}), K2 {:.3f} ms (phase 6: '
@@ -3203,7 +3217,231 @@ def bench_phase(seed, card, kernel_ms):
               kernel_ms['emd_loss'], seconds))
     return dict(seconds=seconds, kernel_ms=bench_ms,
                 device_fps=result['device_fps']['median'],
+                e2e_fps=result['e2e_fps']['median'],
+                eval_val_step_ms={k: v['median']
+                                  for k, v in val_step.items()},
                 train_mfu_batch1_pct=mfu['train_mfu_batch1_pct'])
+
+
+# --------------------------------------------------------------------------
+# Phase 20: the eval step as one CUDA graph
+# --------------------------------------------------------------------------
+
+# Objects per sample of phase 20's three groups of EVAL_BATCH samples;
+# under the Evaluator's default eval_slot_buckets (8, 16) and num_boxes
+# (32) they need the slot buckets 8, 16 and 32
+EVAL_GRAPH_NUM_OBJS = ((3, 8, 1, 5), (12, 2, 16, 4), (30, 7, 9, 20))
+EVAL_GRAPH_SLOT_BUCKETS = (8, 16)
+
+
+def _bits(tensor):
+    """A tensor's bits, so that torch.equal compares them bit for bit (a
+    NaN equal to the same NaN)."""
+    if tensor.is_floating_point():
+        return tensor.view({2: torch.int16, 4: torch.int32,
+                            8: torch.int64}[tensor.element_size()])
+    return tensor
+
+
+def eval_results_against(got, want):
+    """Two eval step results ((packed outputs, losses, metrics) on the
+    CPU): (bit for bit equal, {part/key: largest |d| / max |x| of the
+    wanted tensor}); a NaN in one of them where the other holds a
+    number, or another key, shape or dtype, counts as inf."""
+    equal, worst = True, {}
+    for part, got_part, want_part in zip(('outputs', 'losses', 'metrics'),
+                                         got, want):
+        for key in set(got_part) | set(want_part):
+            name = '{}/{}'.format(part, key)
+            g, w = got_part.get(key), want_part.get(key)
+            if (g is None or w is None or g.shape != w.shape or
+                    g.dtype != w.dtype):
+                equal, worst[name] = False, float('inf')
+                continue
+            equal = equal and torch.equal(_bits(g), _bits(w))
+            g, w = g.double(), w.double()
+            both_nan = torch.isnan(g) & torch.isnan(w)
+            d = torch.where(both_nan, torch.zeros_like(g), (g - w).abs())
+            d = torch.nan_to_num(d, nan=float('inf'))
+            scale = float(torch.nan_to_num(w.abs(), nan=0.0).max()) \
+                if w.numel() else 0.0
+            worst[name] = (float(d.max()) if d.numel() else 0.0) / (
+                scale or 1.0)
+    return equal, worst
+
+
+def _on_cpu(out):
+    return tuple({k: v.detach().cpu() for k, v in part.items()}
+                 for part in out)
+
+
+def eval_graph_against_eager(cfg, mode, groups, buckets, seeds,
+                             deterministic):
+    """The eval step (``make_eval_step``) of a net with the seeded
+    weights of ``seeds[0]`` against ``eval.step_graph.GraphedEvalStep``
+    over the same step: a warm-up call on ``groups[0]``, then, for the
+    weights of each seed of ``seeds`` in turn (restored into the net by
+    ``load_state_dict``, as the evaluator restores a checkpoint), every
+    group of ``groups`` (stacked host batches) at its slot bucket of
+    ``buckets``, through the graph and eagerly. With ``deterministic``,
+    under cuDNN-deterministic and PyTorch's deterministic algorithms (set
+    here and reset after). Then a restore with ``assign=True`` (new
+    storage) must make the next replay raise. Returns a dict: bit for bit equality, the largest |d| / max |x| and its key,
+    K1's launches (eager calls; the graph's warm-up and capture by
+    Python; captured; replays; as ``step_graph.kernel_launches`` counts
+    them), the warm-up and capture seconds, the planted restore's error."""
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            states = []
+            for seed in seeds[1:]:
+                other = monopsr.create_net(cfg, device='cuda', seed=seed)
+                states.append({k: v.detach().clone()
+                               for k, v in other.state_dict().items()})
+                del other
+            net = monopsr.create_net(cfg, device='cuda', seed=seeds[0])
+            step = evaluator.make_eval_step(net, cfg, LOSS_CONFIG, mode,
+                                            device='cuda')
+            graphed = eval_graph.GraphedEvalStep(step, 'cuda', net,
+                                                 cfg.num_boxes)
+            emd_ops.emd_cost_fused.launches = 0
+            start = eval_graph.kernel_launches(graphed)['emd_cost_fused']
+            results, eager_calls = [], 0
+            graphed(groups[0], buckets[0])          # the warm-up call
+            for weights_index in range(len(seeds)):
+                if weights_index:
+                    net.load_state_dict(states[weights_index - 1])
+                for group, bucket in zip(groups, buckets):
+                    got = _on_cpu(graphed(group, bucket))
+                    want = _on_cpu(step(group, bucket))
+                    eager_calls += 1
+                    results.append((got, want))
+            k1_python = emd_ops.emd_cost_fused.launches
+            k1_counted = (eval_graph.kernel_launches(graphed)
+                          ['emd_cost_fused'] - start)
+            replays = graphed.replays
+            planted = None
+            net.load_state_dict({k: v.clone() for k, v in
+                                 net.state_dict().items()}, assign=True)
+            try:
+                graphed(groups[0], buckets[0])
+            except RuntimeError as exc:
+                planted = str(exc)
+            torch.cuda.synchronize()
+            out = dict(
+                k1_eager=eager_calls, k1_python=k1_python,
+                k1_counted=k1_counted,
+                k1_captured=graphed.captured_launches['emd_cost_fused'],
+                replays=replays, warm_up_s=graphed.warm_up_seconds,
+                capture_s=graphed.capture_seconds, planted_error=planted)
+            del net, step, graphed, states
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = before[0]
+        torch.backends.cudnn.benchmark = before[1]
+        torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+    worst, equal, finite = {}, True, True
+    for got, want in results:
+        same, errors = eval_results_against(got, want)
+        equal = equal and same
+        for key, value in errors.items():
+            worst[key] = max(worst.get(key, 0.0), value)
+        finite = finite and all(
+            bool(torch.isfinite(v).all()) for part in got
+            for v in part.values() if v.is_floating_point())
+    worst_key = max(worst, key=worst.get) if worst else None
+    out.update(bitwise_equal=equal, worst_key=worst_key,
+               worst=worst[worst_key] if worst_key else 0.0, finite=finite)
+    return out
+
+
+def eval_graph_phase(seed, card, val_step_ms):
+    """Phase 20: the eval step as one CUDA graph
+    (``eval.step_graph.GraphedEvalStep``) at production width in val mode
+    against the eager step, on three synthetic groups of EVAL_BATCH
+    samples at the slot buckets 8, 16 and 32 that their objects need,
+    for two seeded sets of weights restored into one net through one
+    capture: in float32 under deterministic algorithms every output, loss
+    and metric bit for bit; in bfloat16 (the production config) the
+    largest difference within phase 12's BF16_BOUND of each tensor's
+    largest value; both finite. A restore with ``assign=True`` must make
+    the next replay raise; K1 is captured once and its captured launch x
+    replays equals the groups run through the graph. Printed: the warm-up
+    and capture seconds, beside the val step's ms through the graph and
+    eagerly that phase 19's bench measured (``val_step_ms``, {'graphed':
+    ms, 'eager': ms})."""
+    t0 = time.time()
+    cfg16 = flagship.flagship_config()
+    cfg32 = dataclasses.replace(cfg16, compute_dtype='float32')
+    slot_buckets = sorted(set(EVAL_GRAPH_SLOT_BUCKETS) | {cfg16.num_boxes})
+    buckets = [pipeline.slot_bucket([{C.SAMPLE_NUM_OBJS: n} for n in objs],
+                                    slot_buckets, cfg16.num_boxes)
+               for objs in EVAL_GRAPH_NUM_OBJS]
+    if buckets != [8, 16, 32]:
+        fail('eval graph: slot buckets {}'.format(buckets))
+    groups = [flagship.synthetic_batch(seed + 50 + i, cfg16, EVAL_BATCH,
+                                       (375, 1242), C.DEPTH_PAD_SHAPE)
+              for i in range(len(buckets))]
+    seeds = (seed, seed + 1)
+    report = {}
+    for name, cfg, deterministic in (('float32', cfg32, True),
+                                     ('bfloat16', cfg16, False)):
+        r = eval_graph_against_eager(cfg, 'val', groups, buckets, seeds,
+                                     deterministic)
+        report[name] = r
+        runs = len(groups) * len(seeds)
+        print('eval graph, {} ({}; val, eval batch {}, buckets {}, weights '
+              'of seeds {} through one capture{}): {}, largest |d| {:.3e} '
+              'of max|x| at {} (bound: {}); K1: {} eager calls, in the '
+              'graph run {} by Python (the warm-up call and the capture), '
+              '{} captured x {} replays, counted as {}; warm-up {:.3f} s, '
+              'capture {:.3f} s; the assign=True restore: {}'.format(
+                  name, card, EVAL_BATCH, buckets, list(seeds),
+                  ', deterministic algorithms' if deterministic else '',
+                  'bit for bit' if r['bitwise_equal'] else 'not bit for bit',
+                  r['worst'], r['worst_key'],
+                  'bit for bit' if deterministic else
+                  '{} of max|x|'.format(BF16_BOUND),
+                  r['k1_eager'], r['k1_python'] - r['k1_eager'],
+                  r['k1_captured'], r['replays'], r['k1_counted'],
+                  r['warm_up_s'], r['capture_s'],
+                  'raised' if r['planted_error'] else 'did not raise'))
+        if not r['finite']:
+            fail('eval graph, {}: a graphed output is not finite'.format(
+                name))
+        if deterministic and not r['bitwise_equal']:
+            fail('eval graph, {}: the graph differs from the eager step, '
+                 'largest at {}'.format(name, r['worst_key']))
+        if r['worst'] > BF16_BOUND:
+            fail('eval graph, {}: {} differs by {:.3e} of max|x|, beyond '
+                 '{}'.format(name, r['worst_key'], r['worst'], BF16_BOUND))
+        if not r['planted_error']:
+            fail('eval graph, {}: a replay after a load_state_dict with '
+                 'assign=True did not raise'.format(name))
+        if (r['k1_captured'] != 1 or r['replays'] != runs or
+                r['k1_captured'] * r['replays'] != runs or
+                r['k1_python'] != r['k1_eager'] + 2 or
+                r['k1_counted'] != r['k1_eager'] + 1 + runs):
+            fail('eval graph, {}: K1 {} eager, {} by Python, {} captured x '
+                 '{} replays, counted {}; want {} replays'.format(
+                     name, r['k1_eager'], r['k1_python'], r['k1_captured'],
+                     r['replays'], r['k1_counted'], runs))
+    seconds = time.time() - t0
+    print('eval graph ({}, bfloat16): capture {:.3f} s; the val step at '
+          'eval batch {} (phase 19\'s bench, each call with its upload): '
+          'graph {:.3f} ms, eager {:.3f} ms; {:.1f} s'.format(
+              card, report['bfloat16']['capture_s'], EVAL_BATCH,
+              val_step_ms['graphed'], val_step_ms['eager'], seconds))
+    report.update(buckets=buckets, seconds=seconds)
+    return report
 
 
 def main():
@@ -3238,42 +3476,60 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('  ptxas {}: {}'.format(name, line.strip()))
 
-    prod, ms, plain_ms, apart = kernel_phase(args.seed)
-    slice_reference(args.seed)
-    report = main_path(args.seed)
-    prod2, ms2, plain_ms2, apart2 = kernel_phase_k2(args.seed)
-    sweep = sweep_phase([('K1 production, masked', prod),
-                         ('K1 masked, drawn apart', apart),
-                         ('K2 train step, masked', prod2),
-                         ('K2 train step, masked, drawn apart', apart2)])
-    train_reference(args.seed)
-    train_report = main_path_train(args.seed)
+    seconds = {'1-2 card and build': time.time() - t_start}
+
+    def phase(name, fn, *fn_args):
+        """Runs one phase, printing and keeping its seconds."""
+        t0 = time.time()
+        out = fn(*fn_args)
+        seconds[name] = time.time() - t0
+        print('phase {}: {:.1f} s'.format(name, seconds[name]), flush=True)
+        return out
+
+    prod, ms, plain_ms, apart = phase('3 kernels', kernel_phase, args.seed)
+    phase('4 slice reference', slice_reference, args.seed)
+    report = phase('5 main path', main_path, args.seed)
+    prod2, ms2, plain_ms2, apart2 = phase('6 K2 kernel', kernel_phase_k2,
+                                          args.seed)
+    sweep = phase('6 sweep', sweep_phase, [
+        ('K1 production, masked', prod), ('K1 masked, drawn apart', apart),
+        ('K2 train step, masked', prod2),
+        ('K2 train step, masked, drawn apart', apart2)])
+    phase('7 train reference', train_reference, args.seed)
+    train_report = phase('8 main path train', main_path_train, args.seed)
     loop_dir = config_lib.parse_yaml_config(
         train_loop_config(4)).exp_output_dir
     shutil.rmtree(loop_dir, ignore_errors=True)
     try:
-        loop_report = train_loop_phase(card)
-        eval_tiny = eval_reference(args.seed)
-        eval_report = eval_cli_phase(card)
+        loop_report = phase('9 train loop', train_loop_phase, card)
+        eval_tiny = phase('10 eval reference', eval_reference, args.seed)
+        eval_report = phase('11 eval CLIs', eval_cli_phase, card)
     finally:
         shutil.rmtree(loop_dir, ignore_errors=True)
-    prod_ref = production_reference(args.seed)
-    prep_report = data_prep_phase(card)
-    dp_report = data_parallel_phase(args.seed, card)
+    prod_ref = phase('12 production reference', production_reference,
+                     args.seed)
+    prep_report = phase('13 data preparation', data_prep_phase, card)
+    dp_report = phase('14 data parallel', data_parallel_phase, args.seed,
+                      card)
     gate_dirs = [os.path.join(monopsr_torch.data_dir(), 'outputs', name)
                  for name in ('accuracy_gate', '_accuracy_gate_cfg')]
     for path in gate_dirs:
         shutil.rmtree(path, ignore_errors=True)
     try:
-        gate_report = accuracy_gate_phase(card)
+        gate_report = phase('15 accuracy gate', accuracy_gate_phase, card)
     finally:
         for path in gate_dirs:
             shutil.rmtree(path, ignore_errors=True)
-    pretrained_report = pretrained_remat_phase(args.seed, card)
-    graph_report = steps_per_dispatch_phase(args.seed, card, loop_report)
-    feed_report = host_feed_phase(args.seed, card, loop_report)
-    bench_report = bench_phase(args.seed, card, {'emd_cost_fused': ms,
-                                                 'emd_loss': ms2})
+    pretrained_report = phase('16 pretrained trunk and remat',
+                              pretrained_remat_phase, args.seed, card)
+    graph_report = phase('17 steps_per_dispatch', steps_per_dispatch_phase,
+                         args.seed, card, loop_report)
+    feed_report = phase('18 host feed', host_feed_phase, args.seed, card,
+                        loop_report)
+    bench_report = phase('19 bench', bench_phase, args.seed, card,
+                         {'emd_cost_fused': ms, 'emd_loss': ms2})
+    eval_graph_report = phase('20 eval graph', eval_graph_phase, args.seed,
+                              card, bench_report['eval_val_step_ms'])
     emd_graph = graph_report['equality']['emd loss']
 
     b, n, m = prod['shape']
@@ -3296,6 +3552,16 @@ def main():
         'launches_accuracy_gate': gate_report['k1_launches'],
         'launches_pretrained_remat': pretrained_report['launches'][0],
         'launches_steps_per_dispatch': graph_report['k1_launches'],
+        'launches_eval_graph': [eval_graph_report[name]['k1_counted']
+                                for name in ('float32', 'bfloat16')],
+        'launches_eval_graph_counted_as': (
+            'phase 20, float32 then bfloat16: per run {} eager calls, 1 '
+            'eager warm-up call of the graphed step, and {} launch captured '
+            'x {} replays (a captured launch runs in every replay; the '
+            'Python counter counts it once, at capture)'.format(
+                eval_graph_report['bfloat16']['k1_eager'],
+                eval_graph_report['bfloat16']['k1_captured'],
+                eval_graph_report['bfloat16']['replays'])),
         'max_abs_err': prod['max_abs_err'],
         'max_rel_err': prod['max_rel_err'],
         'main_path_clouds_max_rel_err': report['clouds_max_rel_err'],
@@ -3368,6 +3634,9 @@ def main():
     print('steps_per_dispatch: ' + json.dumps(graph_report))
     print('host feed: ' + json.dumps(feed_report))
     print('bench: ' + json.dumps(bench_report))
+    print('eval graph: ' + json.dumps(eval_graph_report))
+    print('phase seconds: ' + json.dumps(
+        {name: round(value, 1) for name, value in seconds.items()}))
     print('total {:.1f} s'.format(time.time() - t_start))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

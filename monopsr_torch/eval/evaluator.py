@@ -9,7 +9,11 @@ Counterpart of ``monopsr_tpu/eval/evaluator.py`` and of
   the EMD metric launches the kernel K1 once per step (on CUDA).
 - ``Evaluator``: per checkpoint, restores the weights (EMA preferred)
   into a net built once, runs one epoch of the dataset in groups of
-  ``eval_batch`` (the tail padded by repeating its last sample), saves
+  ``eval_batch`` (the tail padded by repeating its last sample) through
+  its eval step, built once as JAX builds its jit (on CUDA a
+  ``step_graph.GraphedEvalStep``: one CUDA graph of the step, captured
+  at the second group and replayed for every later group of every
+  checkpoint; on the CPU the eager step), saves
   the predictions, the loss means, the per-box metrics' CSVs and the
   KITTI files, and (val mode) runs the native AP evaluator; a polling
   loop with an ``evaluated_<split>.txt`` ledger skips finished
@@ -46,9 +50,8 @@ import torch
 
 from monopsr_torch import constants as C
 from monopsr_torch.eval import kitti_writers, native_eval, pipeline
-from monopsr_torch.eval import predictions
+from monopsr_torch.eval import predictions, step_graph
 from monopsr_torch.models import monopsr
-from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.parallel import data_parallel as dp_lib
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer as trainer_lib
@@ -190,6 +193,10 @@ class Evaluator:
             its copies to the host, from CUDA events; per row of the
             group, pad rows included, as the JAX bench counts it),
             'format' and 'write' (the predictions).
+        kernel_launches: {'emd_cost_fused': K1 launches, 'emd_loss': K2
+            launches, 'groups': dispatch groups} of the last checkpoint's
+            pass on this rank, a launch captured in the eval step's graph
+            counted once per replay (``step_graph.kernel_launches``).
 
     Raises ValueError when ``eval_data_parallel`` (or ``data_parallel``),
     clamped to the visible cards, is above 1 and this process is not one
@@ -255,8 +262,13 @@ class Evaluator:
         self._eval_step = make_eval_step(self.net, self.cfg,
                                          self.loss_config, eval_mode,
                                          device=self.device)
+        if self.device.type == 'cuda':
+            self._eval_step = step_graph.GraphedEvalStep(
+                self._eval_step, self.device, self.net, self.cfg.num_boxes)
+        self._graph_reported = set()     # what _report_graph printed
         self._template_state = None
         self.stage_times = prefetch.StageTimes()
+        self.kernel_launches = None
 
         # Ledger of evaluated checkpoints
         os.makedirs(config.exp_output_dir, exist_ok=True)
@@ -384,8 +396,7 @@ class Evaluator:
         t_epoch = time.perf_counter()
         dataset._index_in_epoch = 0
         dataset.epochs_completed = 0
-        launches_before = (emd_ops.emd_cost_fused.launches,
-                           emd_ops.emd_distance.launches)
+        launches_before = step_graph.kernel_launches(self._eval_step)
 
         def process(sample, outputs, losses, metrics):
             """Aggregates, formats, and saves one sample's results."""
@@ -512,10 +523,15 @@ class Evaluator:
         ranks = ''
         if world > 1:
             ranks = ' (rank {} of {})'.format(dp_lib.rank(), world)
+        launches = step_graph.kernel_launches(self._eval_step)
+        self.kernel_launches = dict(
+            {name: n - launches_before[name] for name, n in launches.items()},
+            groups=num_groups)
         print('kernel launches: emd_cost_fused {}, emd_loss {} in {} groups'
-              '{}'.format(emd_ops.emd_cost_fused.launches - launches_before[0],
-                          emd_ops.emd_distance.launches - launches_before[1],
-                          num_groups, ranks))
+              '{}'.format(self.kernel_launches['emd_cost_fused'],
+                          self.kernel_launches['emd_loss'], num_groups,
+                          ranks))
+        self._report_graph(ranks)
         if not is_main:
             return None
         kitti_writers.print_inference_time_statistics(
@@ -609,6 +625,27 @@ class Evaluator:
         if self.eval_mode == 'val':
             results['metrics_per_box'] = metrics_flat
         return results
+
+    def _report_graph(self, ranks):
+        """Prints, once each, the graphed eval step's warm-up seconds and
+        its capture seconds, after the pass that ran them (a pass of one
+        group runs the warm-up call alone)."""
+        graphed = self._eval_step
+        if not isinstance(graphed, step_graph.GraphedEvalStep):
+            return
+        if 'warm-up' not in self._graph_reported and (
+                graphed.warm_up_seconds is not None):
+            self._graph_reported.add('warm-up')
+            print('eval step graph: warm-up {:.3f} s{}'.format(
+                graphed.warm_up_seconds, ranks))
+        if 'capture' not in self._graph_reported and (
+                graphed.capture_seconds is not None):
+            self._graph_reported.add('capture')
+            print('eval step graph: capture {:.3f} s, captured launches '
+                  'emd_cost_fused {}, emd_loss {}{}'.format(
+                      graphed.capture_seconds,
+                      graphed.captured_launches['emd_cost_fused'],
+                      graphed.captured_launches['emd_loss'], ranks))
 
     # -- native eval -------------------------------------------------------
 

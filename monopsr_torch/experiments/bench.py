@@ -7,10 +7,11 @@ Counterpart of the JAX system's ``bench.py`` and ``scripts/bench_ops.py``:
 
 Every reading runs the code the CLIs run (``MonoPSRNet``,
 ``evaluator.Evaluator``, ``trainer.make_train_step``,
-``step_graph.GraphedTrainStep``, the K1/K2 CUDA kernels) on the config
-of ``--config`` (default ``configs/monopsr_model_000.yaml``: ResNet-101
-towers, 32 boxes, 320x1216, bfloat16, 100.4 M parameters) with seeded
-weights and synthetic samples (``experiments/flagship.py``):
+``step_graph.GraphedTrainStep``, ``eval.step_graph.GraphedEvalStep``,
+the K1/K2 CUDA kernels) on the config of ``--config`` (default
+``configs/monopsr_model_000.yaml``: ResNet-101 towers, 32 boxes,
+320x1216, bfloat16, 100.4 M parameters) with seeded weights and
+synthetic samples (``experiments/flagship.py``):
 
 - ``device_fps``: the test-mode forward at batch 1 on inputs already on
   the card, as replays of a CUDA graph of it (the card's own rate, as
@@ -18,21 +19,29 @@ weights and synthetic samples (``experiments/flagship.py``):
   of calls;
 - ``forward_fps``: the same with the upload of a pinned uint8 sample
   into the graph's inputs before each replay;
-- ``eager_forward_fps``: the forward at batch 1 as the eval CLIs run it,
-  eagerly; the host's launches set its pace;
+- ``eager_forward_fps``: the same forward at batch 1 run eagerly, op by
+  op from the host; the host's launches set its pace;
 - ``batched8_fps``: the graphed forward at 8 images on the card;
+- ``eval_val_step_ms``: the val eval step (``make_eval_step`` in val
+  mode: forward, GT, losses, metrics with K1, packing) at eval batch on
+  one host batch, each call with its upload, as the evaluator runs it on
+  the card (``graphed``: replays of ``eval.step_graph.GraphedEvalStep``)
+  and eagerly (``eager``), by CUDA events over a run of calls;
+  ``eval_dispatch_overhead_ms`` is the eager median less the graphed one;
 - ``tf32_val_step_device_ms``: the device's busy ms of one val eval step
   (K1 included) at eval batch under the precision policy (TF32 off) and
   with TF32 on, in turns;
 - ``e2e_fps`` and ``e2e_stages_ms_per_frame`` (assembly, dispatch,
   pull, format, write, wall): ``Evaluator`` in test mode over the KITTI
   fixture's val split repeated E2E_EPOCHS times per pass (several pulls
-  of the pull pipeline), from a checkpoint of the seeded weights saved
-  to a temporary directory, native AP off; the stages are the
-  evaluator's own marks (``Evaluator.stage_times``);
+  of the pull pipeline; on the card the evaluator's eval step is a CUDA
+  graph, captured in the warm-up pass), from a checkpoint of the seeded
+  weights saved to a temporary directory, native AP off; the stages are
+  the evaluator's own marks (``Evaluator.stage_times``);
 - ``train_batch_curve``: the graphed train step (K = 4 steps per
-  dispatch) at batches 1, 2, 4, 8 and at 8 with 'unit' remat: ms/step,
-  peak GB and ``train_mfu_pct``; ``train_dispatch_overhead_ms`` is the
+  dispatch) at batches 1, 2, 4, 8 and at 8 with 'unit' remat (``8r``)
+  and with 'conv_outs' remat (``8c``): ms/step, peak GB and
+  ``train_mfu_pct``; ``train_dispatch_overhead_ms`` is the
   eager step's ms at batch 1 less the graphed one's;
 - ``mfu``: FLOPs counted over one eager call at the same shapes
   (``profiling.count_flops``: convolutions and matmuls, forward and, for
@@ -83,12 +92,14 @@ import monopsr_torch
 from monopsr_torch import config as config_lib
 from monopsr_torch.datasets.kitti.kitti_dataset import KittiDataset
 from monopsr_torch.eval import evaluator
+from monopsr_torch.eval import step_graph as eval_graph
 from monopsr_torch.experiments import flagship
 from monopsr_torch.models import monopsr
 from monopsr_torch.ops import chamfer as chamfer_ops
 from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.train import step_graph, trainer
 from monopsr_torch.train.train_state import TrainState
+from monopsr_torch.utils import cuda_graph
 from monopsr_torch.utils import device as device_lib
 from monopsr_torch.utils import profiling
 
@@ -101,10 +112,15 @@ H100_BF16_PEAK_FLOPS = 989e12
 FORWARD_CALLS = 10          # calls per timed run of the batch-1 forward
 BATCHED = 8                 # images of the batched forward
 BATCHED_CALLS = 5
+EVAL_STEP_CALLS = 5         # calls per timed run of the val eval step
 E2E_EPOCHS = 8              # the fixture's val split per e2e pass
 GRAPH_K = 4                 # train steps per graphed dispatch
-# (images per step, tower remat policy) of the train-step curve
-TRAIN_BATCHES = ((1, None), (2, None), (4, None), (8, None), (8, 'unit'))
+# (images per step, tower remat policy) of the train-step curve, each
+# remat policy captured and replayed at batch 8
+TRAIN_BATCHES = ((1, None), (2, None), (4, None), (8, None), (8, 'unit'),
+                 (8, 'conv_outs'))
+# An entry's key: its images, then this suffix of its remat policy
+REMAT_KEYS = {None: '', 'unit': 'r', 'conv_outs': 'c'}
 KERNEL_CALLS = 5
 STAGES = ('assembly', 'dispatch', 'pull', 'format', 'write', 'wall')
 KEEP = 0.6                  # share of unmasked points of the EMD clouds
@@ -235,15 +251,9 @@ def graphed_forward(run, net, batch):
             outputs.update(flagship.forward(net, batch))
         replay()
         return replay, outputs
-    current = torch.cuda.current_stream(run.device)
-    stream = torch.cuda.Stream(run.device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        flagship.forward(net, batch)
-    current.wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        outputs = flagship.forward(net, batch)
+    graph = cuda_graph.SideStreamGraph(run.device, 'forward')
+    graph.warm_up(lambda: flagship.forward(net, batch))
+    outputs = graph.capture(lambda: flagship.forward(net, batch))
     graph.replay()
     return graph.replay, outputs
 
@@ -281,7 +291,7 @@ def bench_forward(run, sample, replay, outputs, inputs):
 
 def bench_eager_forward(run, net, sample):
     """Frames/s of the eager test-mode forward at batch 1 on a sample
-    already on the device, as the eval CLIs run it."""
+    already on the device."""
     on_device = evaluator.batch_to_device(sample, run.device)
     _finite(flagship.forward(net, on_device), 'the eager forward')
     return _spread(_fps(run.repeat_ms(
@@ -300,6 +310,32 @@ def bench_batched(run, net, images=BATCHED):
     _finite(outputs, 'the batched forward')
     ms = run.repeat_ms(replay, BATCHED_CALLS)
     return _spread(_fps(ms, images), 'frames/s'), flops / images
+
+
+def bench_eval_val_step(run, net):
+    """ms per call of the val eval step at eval batch on one synthetic
+    host batch, each call with its upload: {'graphed': replays of a
+    ``GraphedEvalStep`` (after its warm-up call and its capture),
+    'eager': ``make_eval_step`` itself}, by CUDA events over
+    EVAL_STEP_CALLS calls, ``repeats`` times each. On the CPU one eager
+    step and None for both."""
+    eval_batch = int(run.config.train_config.get('eval_batch', 4))
+    step = evaluator.make_eval_step(net, run.cfg,
+                                    flagship.loss_config(run.config), 'val',
+                                    device=run.device)
+    batch = flagship.synthetic_batch(run.seed + 2, run.cfg, eval_batch)
+    _finite(dict(enumerate(step(batch))), 'the eager val eval step')
+    if not run.cuda:
+        return {'graphed': None, 'eager': None}
+    graphed = eval_graph.GraphedEvalStep(step, run.device, net,
+                                         run.cfg.num_boxes)
+    graphed(batch)                    # the warm-up call
+    _finite(dict(enumerate(graphed(batch))), 'the graphed val eval step')
+    ms = {'graphed': run.repeat_ms(lambda: graphed(batch), EVAL_STEP_CALLS),
+          'eager': run.repeat_ms(lambda: step(batch), EVAL_STEP_CALLS)}
+    del graphed
+    torch.cuda.empty_cache()
+    return {key: _spread(value, 'ms/step') for key, value in ms.items()}
 
 
 def bench_tf32(run, net):
@@ -595,13 +631,14 @@ def main(argv=None):
     eager_busy, eager_groups = run.profile(lambda b: fwd(net, b), on_device,
                                            FORWARD_CALLS)
     batched_fps, batched_flops = bench_batched(run, net)
+    val_step = bench_eval_val_step(run, net)
     tf32 = bench_tf32(run, net)
     del net, on_device, replay, outputs, inputs
     if run.cuda:
         torch.cuda.empty_cache()
     e2e = bench_e2e(run)
     eager = bench_train_step(run)
-    curve = {'{}{}'.format(images, 'r' if remat else ''):
+    curve = {'{}{}'.format(images, REMAT_KEYS[remat]):
              bench_train_step_graphed(run, images, remat,
                                       profile=images == 1 and not remat)
              for images, remat in TRAIN_BATCHES}
@@ -637,6 +674,9 @@ def main(argv=None):
         train_mfu_batch1_pct=curve['1']['train_mfu_pct'])
     overhead = (None if eager is None else
                 eager['median'] - graphed1['median'])
+    eval_overhead = (None if val_step['eager'] is None else
+                     val_step['eager']['median'] -
+                     val_step['graphed']['median'])
     result = {
         'metric': 'inference_fps_h100',
         'value': _median(device_fps),
@@ -649,6 +689,8 @@ def main(argv=None):
         'forward_fps': forward_fps,
         'eager_forward_fps': eager_fps,
         'batched8_fps': batched_fps,
+        'eval_val_step_ms': val_step,
+        'eval_dispatch_overhead_ms': eval_overhead,
         'tf32_val_step_device_ms': tf32,
         'train_batch_curve': curve,
         'train_steps_per_dispatch': GRAPH_K,
@@ -668,7 +710,7 @@ def main(argv=None):
         'chamfer_shape': chamfer_shape,
     }
     result.update(e2e)
-    for value in (result['value'], overhead):
+    for value in (result['value'], overhead, eval_overhead):
         _check(value is None or math.isfinite(value),
                'a reading is not finite: {}'.format(value))
     print(json.dumps(result))

@@ -29,43 +29,34 @@ step's Python and its ~7,900 launches are paid once, at capture.
   its stream.
 - A capture that fails raises; nothing falls back to eager steps.
 
+The side stream, the capture and the static input buffers are
+``utils.cuda_graph.SideStreamGraph``'s, which the graphed eval step
+shares.
+
 Python counters of kernel launches (``emd_distance.launches``) count a
 captured launch once, at capture: its launches on this path are the
 captured ones times ``replays``.
 """
 
-import time
-
 import numpy as np
 import torch
 
+from monopsr_torch.utils import cuda_graph
 
-class GraphedTrainStep:
+
+class GraphedTrainStep(cuda_graph.SideStreamGraph):
     """Runs train steps of ``train_step`` (from ``make_train_step``) on a
     CUDA device: the first eagerly, every later one as a replay of a
-    CUDA graph captured at the second.
+    CUDA graph captured at the second (``utils.cuda_graph``).
 
-    Attributes:
-        capture_seconds: host seconds of the capture, None before it.
-        replays: graph replays so far (the captured step's first run
-            included).
+    Attributes (besides ``SideStreamGraph``'s):
+        losses: the graph's loss tensors, None before the capture.
     """
 
     def __init__(self, train_step, device):
-        device = torch.device(device)
-        if device.type != 'cuda':
-            raise ValueError('a CUDA graph runs on a CUDA device, got '
-                             '{}'.format(device))
-        if device.index is None:
-            device = torch.device('cuda', torch.cuda.current_device())
+        super().__init__(device, 'train step')
         self.train_step = train_step
-        self.device = device
-        self.stream = None
-        self.graph = None
-        self.inputs = None
         self.losses = None
-        self.capture_seconds = None
-        self.replays = 0
 
     def __call__(self, state, batches):
         """Takes one train step per batch of ``batches`` (stacked sample
@@ -73,7 +64,10 @@ class GraphedTrainStep:
         losses of the last step)."""
         losses = None
         if self.stream is None:
-            state, losses = self._warm_up(state, batches[0])
+            # The run's first step, eagerly, on the side stream the graph
+            # is captured on
+            state, losses = self.warm_up(
+                lambda: self.train_step(state, batches[0]))
             batches = batches[1:]
         if not batches:
             return state, losses
@@ -83,23 +77,14 @@ class GraphedTrainStep:
                 for key, buffer in self.inputs.items():
                     buffer.copy_(staged[key][i], non_blocking=True)
             if self.graph is None:
-                self._capture(state)
+                # Captures one train step on the static inputs (the
+                # state's tensors and the buffers)
+                state, self.losses = self.capture(
+                    lambda: self.train_step(state, self.inputs))
             else:
                 state.step += 1
-            self.graph.replay()
-            self.replays += 1
+            self.replay()
         return state, self.losses
-
-    def _warm_up(self, state, batch):
-        """The run's first step, eagerly, on the side stream the graph is
-        captured on."""
-        self.stream = torch.cuda.Stream(self.device)
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            state, losses = self.train_step(state, batch)
-        current.wait_stream(self.stream)
-        return state, losses
 
     def _upload(self, batches):
         """{key: (k, ...) device tensor} of the k batches, each input in
@@ -113,27 +98,6 @@ class GraphedTrainStep:
                 np.stack([batch[key] for batch in batches])))
             staged[key] = host.pin_memory().to(self.device,
                                                non_blocking=True)
-        if self.inputs is None:
-            self.inputs = {key: torch.empty_like(value[0])
-                           for key, value in staged.items()}
-        want = {key: (tuple(v.shape), v.dtype)
-                for key, v in self.inputs.items()}
-        got = {key: (tuple(v.shape[1:]), v.dtype)
-               for key, v in staged.items()}
-        if got != want:
-            raise ValueError(
-                'a batch of the graphed train step differs from the one it '
-                'was captured with: {} against {}'.format(got, want))
+        self.static_inputs({key: (tuple(value.shape[1:]), value.dtype)
+                            for key, value in staged.items()})
         return staged
-
-    def _capture(self, state):
-        """Captures one train step on the static inputs (the state's
-        tensors and the buffers); capture runs nothing, so the caller
-        replays it."""
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream):
-            state, losses = self.train_step(state, self.inputs)
-        self.capture_seconds = time.perf_counter() - t0
-        self.graph, self.losses = graph, losses

@@ -52,6 +52,7 @@ def test_flagship_config_matches_the_jax_entry():
 # Every reading of the bench's result line, and the timings among them
 READINGS = ('metric', 'value', 'unit', 'device', 'device_fps',
             'forward_fps', 'eager_forward_fps', 'batched8_fps',
+            'eval_val_step_ms', 'eval_dispatch_overhead_ms',
             'tf32_val_step_device_ms', 'e2e_fps',
             'e2e_stages_ms_per_frame', 'train_batch_curve',
             'train_dispatch_overhead_ms', 'mfu', 'device_busy_pct',
@@ -78,8 +79,11 @@ def test_bench_on_the_cpu_counts_and_measures_nothing(tiny_config, capsys):
     for key in ('value', 'device_fps', 'forward_fps', 'eager_forward_fps',
                 'batched8_fps', 'tf32_val_step_device_ms', 'e2e_fps',
                 'train_dispatch_overhead_ms',
-                'train_eager_ms_per_step_batch1', 'chamfer_ms'):
+                'train_eager_ms_per_step_batch1', 'chamfer_ms',
+                'eval_dispatch_overhead_ms'):
         assert result[key] is None, key
+    # The val step, graphed and eager: not measured off the card
+    assert result['eval_val_step_ms'] == {'graphed': None, 'eager': None}
     assert set(result['e2e_stages_ms_per_frame']) == set(STAGES)
     assert all(v is None for v in result['e2e_stages_ms_per_frame'].values())
     assert sorted(result['device_busy_pct']) == [
@@ -89,8 +93,9 @@ def test_bench_on_the_cpu_counts_and_measures_nothing(tiny_config, capsys):
         if 'mfu' in key or key.endswith(('_batch', '_remat')):
             assert result['mfu'][key] is None, key
     curve = result['train_batch_curve']
-    assert sorted(curve) == ['1', '2', '4', '8', '8r']
+    assert sorted(curve) == ['1', '2', '4', '8', '8c', '8r']
     assert curve['8r']['remat'] == 'unit' and curve['8']['remat'] is None
+    assert curve['8c']['remat'] == 'conv_outs'
     for entry in curve.values():
         assert entry['ms_per_step'] is None and entry['peak_gb'] is None
         assert entry['train_mfu_pct'] is None
@@ -107,11 +112,17 @@ def test_bench_on_the_cpu_counts_and_measures_nothing(tiny_config, capsys):
         mfu['forward_gflops_per_frame'] < 3.5
     assert curve['8']['gflops_per_step'] == pytest.approx(
         8 * curve['1']['gflops_per_step'], rel=1e-6)
-    # The remat entry's share is of the model's FLOPs; its count holds the
-    # recomputed forward too
-    assert curve['8r']['gflops_per_step'] == curve['8']['gflops_per_step']
+    # A remat entry's share is of the model's FLOPs; 'unit''s count holds
+    # the recomputed forward too
+    for key in ('8r', '8c'):
+        assert curve[key]['gflops_per_step'] == \
+            curve['8']['gflops_per_step']
     assert curve['8r']['counted_gflops_per_step'] > \
         curve['8']['counted_gflops_per_step']
+    # 'conv_outs' keeps the convolutions' outputs: it recomputes no
+    # convolution or matmul, so its count is no remat's
+    assert curve['8c']['counted_gflops_per_step'] == pytest.approx(
+        curve['8']['counted_gflops_per_step'], rel=1e-9)
     # The fixture's val split (6 frames) E2E_EPOCHS times in one pass,
     # with one KITTI file per frame of the split
     assert result['e2e_epochs'] == bench.E2E_EPOCHS >= 3

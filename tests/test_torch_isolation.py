@@ -19,8 +19,9 @@ _BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'PIL', 'yaml',
 _ROOT_ENTRY_POINTS = ('__graft_entry__', 'bench')
 
 # Modules added with the converters, remat, the trainer's hooks, the
-# evaluation tools, the drawing helpers, the demos, the M15 tail and the
-# bench
+# evaluation tools, the drawing helpers, the demos, the M15 tail, the
+# bench, the graphed eval step and what it shares with the graphed train
+# step
 _LATER_MODULES = (
     'tools.convert_tf_resnet', 'tools.convert_torch_resnet',
     'tools.odapi_manifest', 'tools.save_kitti_predictions',
@@ -29,7 +30,8 @@ _LATER_MODULES = (
     'demos.show_jittered_boxes_2d', 'demos.view_instance_masks',
     'core_utils.distance_metrics', 'core_utils.format_checker',
     'core_utils.label_cluster_utils', 'core_utils.instance_metrics',
-    'geometry.planes', 'experiments.flagship', 'experiments.bench')
+    'geometry.planes', 'experiments.flagship', 'experiments.bench',
+    'eval.step_graph', 'utils.cuda_graph')
 
 _IMPORT_ALL = r"""
 import importlib, pkgutil, sys
@@ -80,8 +82,9 @@ def test_package_imports_without_jax_or_reference():
     the data-preparation tools (monopsr_torch.tools), the data-parallel
     ranks (monopsr_torch.parallel), the accuracy gate
     (monopsr_torch.experiments.accuracy_gate), the converters, the
-    trainer's hooks, the drawing helpers, the demos, the M15 tail and
-    the bench (experiments.flagship and experiments.bench) included (and
+    trainer's hooks, the drawing helpers, the demos, the M15 tail, the
+    bench (experiments.flagship and experiments.bench) and the graphed
+    eval step (eval.step_graph) included (and
     chip_smoke.py), imports with jax, flax, optax, cv2, PIL, yaml,
     scikit-learn, matplotlib, monopsr_tpu and the JAX system's root
     entry points (__graft_entry__.py, bench.py) made unimportable (the

@@ -278,3 +278,29 @@ def test_graphed_dispatch_matches_eager_steps(loss):
                                              planted=True)
     assert not (planted['bitwise_equal'] or planted['within_bound'])
     assert planted['count'] == [4, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['val', 'test'])
+def test_graphed_eval_step_matches_eager(mode):
+    """The eval step as one CUDA graph (``eval.step_graph``) against the
+    eager step on a tiny float32 net, three groups at slot buckets 2, 4
+    and 3, for the weights of two seeds restored into the net through one
+    capture, under deterministic algorithms
+    (``chip_smoke.eval_graph_against_eager``): bit for bit; in val mode K1
+    captured once and run by every replay; a restore with ``assign=True``
+    makes the next replay raise."""
+    _cuda()
+    import chip_smoke
+    cfg = chip_smoke.tiny_train_config()
+    groups = [flagship.synthetic_batch(60 + i, cfg, 2, (96, 320), (96, 320))
+              for i in range(3)]
+    got = chip_smoke.eval_graph_against_eager(cfg, mode, groups, [2, 4, 3],
+                                              (0, 1), deterministic=True)
+    assert got['bitwise_equal'] and got['finite'], got
+    assert got['planted_error'] and 'load_state_dict' in got['planted_error']
+    assert got['replays'] == 6 and got['k1_eager'] == 6
+    k1 = 1 if mode == 'val' else 0
+    assert got['k1_captured'] == k1
+    assert got['k1_python'] == k1 * (got['k1_eager'] + 2)
+    assert got['k1_counted'] == k1 * (got['k1_eager'] + 1 + 6)

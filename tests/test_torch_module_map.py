@@ -39,7 +39,9 @@ NO_COUNTERPART = {
         'waits on one event per tensor; the packed device-to-host '
         'transfers worked around a slow remote TPU link',
     'utils/compile_cache.py':
-        'there is no XLA compilation to cache: torch runs eagerly and the '
+        'the compiled steps\' counterparts are CUDA graphs captured in '
+        'each process (eval/step_graph.py, train/step_graph.py); only the '
+        'cache of compiled programs across processes has none, and the '
         'CUDA kernels are built once per source hash by ops/cuda_build.py',
     'utils/device_select.py':
         'utils/device.py resolves the device (CUDA unless the CPU is asked '
@@ -81,6 +83,53 @@ NAME_REASONS = {
     'train/trainer.py:stack_samples':
         'eval/evaluator.py stack_samples, which the trainer and the '
         'evaluator share',
+}
+
+
+# Port modules with no module of that path in the JAX package (and not an
+# entry point's counterpart, ENTRY_POINTS) -> the JAX construct or file
+# they stand for, or why the port needs them
+PORT_ONLY = {
+    'demos/__init__.py':
+        'the package of the demos, which the JAX system keeps at the '
+        'repository root (demos/)',
+    'demos/show_jittered_boxes_2d.py': 'demos/show_jittered_boxes_2d.py',
+    'demos/view_instance_masks.py': 'demos/view_instance_masks.py',
+    'demos/view_kitti_sample_2d.py': 'demos/view_kitti_sample_2d.py',
+    'eval/native_eval.py':
+        'the native KITTI AP evaluator (scripts/offline_eval), which the '
+        'JAX evaluator builds with make and runs in a forked process',
+    'eval/step_graph.py':
+        'the JAX evaluator\'s compiled eval step, jax.jit(eval_step, '
+        'static_argnums=2) in eval/evaluator.py: one CUDA graph of the '
+        'eval step per Evaluator, replayed for every group',
+    'ops/cuda_build.py':
+        'builds the hand-written CUDA kernels that stand for the Pallas '
+        'kernels, and the host image library; Pallas compiles within XLA',
+    'parallel/data_parallel.py':
+        'one process per card in a process group, in place of the device '
+        'mesh of parallel/mesh.py',
+    'tools/save_kitti_predictions.py':
+        'scripts/offline_eval/save_kitti_predictions.py',
+    'train/step_graph.py':
+        'the JAX trainer\'s steps_per_dispatch program, a lax.scan of K '
+        'train steps in train/trainer.py: K replays of a CUDA graph',
+    'utils/cuda_graph.py':
+        'what the counterparts of the JAX package\'s compiled train and '
+        'eval steps share (eval/step_graph.py, train/step_graph.py): the '
+        'side stream, the capture and the static input buffers',
+    'utils/device.py':
+        'utils/device_select.py and the precision policy JAX sets by '
+        'default: the device (CUDA unless the CPU is asked for), TF32 off',
+    'utils/grids.py':
+        'jnp.linspace\'s rounding, which torch.linspace does not share, '
+        'for the crop, resize and projection grids',
+    'utils/image_io.py':
+        'cv2.imread, cv2.imwrite and cv2.resize, which the JAX package '
+        'calls and the card\'s machine does not have',
+    'weights.py':
+        'moves flax variables into the port\'s modules, for the parity '
+        'tests and the converters',
 }
 
 
@@ -248,3 +297,31 @@ def test_entry_point_names_have_port_counterparts_or_reasons(entry):
 def test_every_entry_name_reason_names_an_entry_point():
     assert sorted({key.split(':')[0] for key in ENTRY_NAME_REASONS} -
                   set(ENTRY_POINTS)) == []
+
+
+def _port_modules():
+    out = []
+    for base, _, files in os.walk(PORT_ROOT):
+        for name in files:
+            if name.endswith('.py'):
+                out.append(os.path.relpath(os.path.join(base, name),
+                                           PORT_ROOT).replace(os.sep, '/'))
+    return sorted(out)
+
+
+def _port_only_modules():
+    return [m for m in _port_modules()
+            if not os.path.exists(os.path.join(JAX_ROOT, m)) and
+            m not in ENTRY_POINTS.values()]
+
+
+@pytest.mark.parametrize('module', _port_only_modules())
+def test_port_only_module_names_what_it_stands_for(module):
+    assert module in PORT_ONLY, (
+        'monopsr_torch/{} has no monopsr_tpu/{}, is no entry point\'s '
+        'counterpart and has no PORT_ONLY entry'.format(module, module))
+    assert PORT_ONLY[module].strip()
+
+
+def test_every_port_only_entry_names_a_port_only_module():
+    assert sorted(set(PORT_ONLY) - set(_port_only_modules())) == []
