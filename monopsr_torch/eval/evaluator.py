@@ -57,7 +57,7 @@ from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import trainer as trainer_lib
 from monopsr_torch.train.train_state import TrainState
 from monopsr_torch.utils import device as device_lib
-from monopsr_torch.utils import prefetch, tb_events
+from monopsr_torch.utils import prefetch, profiling, tb_events
 
 
 def stack_samples(samples):
@@ -186,13 +186,15 @@ class Evaluator:
             for and absent.
 
     Attributes:
-        stage_times: ``utils.prefetch.StageTimes`` of the last checkpoint's
-            pass (``run_checkpoint_once``), per sample: 'assembly' (KITTI
-            reads, merge, ``prepare_sample``), 'dispatch' (stacking and
-            launching a group's step), 'pull' (a group's device work and
-            its copies to the host, from CUDA events; per row of the
-            group, pad rows included, as the JAX bench counts it),
-            'format' and 'write' (the predictions).
+        stage_times: ``utils.profiling.StageTimes`` of the last
+            checkpoint's pass (``run_checkpoint_once``), its spans and
+            counters named 'eval.*'. Its ``per_item_ms``, per sample:
+            'assembly' (KITTI reads, merge, ``prepare_sample``),
+            'dispatch' (stacking a group, its upload, the step's launch
+            and the start of its copies to the host), 'format' and
+            'write' (the predictions); per group: 'pull' (the pipeline's
+            worker waiting for a group's copies), and the other spans
+            below.
         kernel_launches: {'emd_cost_fused': K1 launches, 'emd_loss': K2
             launches, 'groups': dispatch groups} of the last checkpoint's
             pass on this rank, a launch captured in the eval step's graph
@@ -262,12 +264,13 @@ class Evaluator:
         self._eval_step = make_eval_step(self.net, self.cfg,
                                          self.loss_config, eval_mode,
                                          device=self.device)
+        self._graphed = None
         if self.device.type == 'cuda':
-            self._eval_step = step_graph.GraphedEvalStep(
+            self._eval_step = self._graphed = step_graph.GraphedEvalStep(
                 self._eval_step, self.device, self.net, self.cfg.num_boxes)
         self._graph_reported = set()     # what _report_graph printed
         self._template_state = None
-        self.stage_times = prefetch.StageTimes()
+        self.stage_times = profiling.StageTimes('eval.')
         self.kernel_launches = None
 
         # Ledger of evaluated checkpoints
@@ -334,15 +337,16 @@ class Evaluator:
         return self._template_state
 
     def restore_checkpoint(self, manager, step):
-        """Reads checkpoint ``step``'s weights into the template state."""
-        t0 = time.perf_counter()
-        state = trainer_lib.restore_checkpoint(manager, step,
-                                               self._get_template_state())
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
+        """Reads checkpoint ``step``'s weights into the template state (the
+        span 'eval.restore')."""
+        with self.stage_times.span('eval.restore', step) as span:
+            state = trainer_lib.restore_checkpoint(
+                manager, step, self._get_template_state())
+            if self.device.type == 'cuda':
+                torch.cuda.synchronize(self.device)
         if dp_lib.is_main():
             print('restored checkpoint {} in {:.3f} s'.format(
-                step, time.perf_counter() - t0))
+                step, span.seconds))
         return state
 
     def get_evaluated_ckpts(self):
@@ -380,7 +384,29 @@ class Evaluator:
         mean magnitudes), plus, in val mode, ``metrics_per_box``: each
         metric's values over the valid box slots, in sample order. Under
         data-parallel ranks, rank 0 returns it and the others None.
+
+        Its spans and counters go to a new ``stage_times``: the root
+        'eval.pass'; 'eval.groups' (``_dispatch_groups``); on the
+        producers 'eval.assembly' (item: the dataset index), within it
+        'eval.assembly.read' and 'eval.assembly.prepare'; per group (item:
+        its number) 'eval.feed_wait' (for the producers), 'eval.dispatch'
+        (within it 'eval.stack', the step's and the pipeline's spans) and
+        'eval.pull_queue_wait'; 'eval.drain' (the producers and the
+        pipeline closed); on the pipeline's worker 'eval.pull',
+        'eval.format' and 'eval.write' (item: the dataset index); then
+        'eval.metrics_csv', 'eval.log' (the jsonl record and TensorBoard)
+        and 'eval.kitti_files'. Counters: 'eval.frames', 'eval.groups',
+        'eval.pad_rows', 'eval.bytes_up' and the pipeline's
+        'eval.bytes_down'.
         """
+        stages = self.stage_times = profiling.StageTimes('eval.')
+        if self._graphed is not None:
+            self._graphed.times = stages
+        with stages.span('eval.pass', global_step):
+            return self._evaluate(state, global_step, stages)
+
+    def _evaluate(self, state, global_step, stages):
+        """``run_checkpoint_once``'s pass, its spans into ``stages``."""
         dataset = self.dataset
         is_main, world = dp_lib.is_main(), dp_lib.world_size()
         self.net.load_state_dict(
@@ -390,7 +416,6 @@ class Evaluator:
         loss_sums, loss_counts = {}, {}
         metric_values = {}
         feed_times, infer_times = [], []
-        stages = self.stage_times = prefetch.StageTimes()
 
         num_evaluated = 0
         t_epoch = time.perf_counter()
@@ -398,7 +423,7 @@ class Evaluator:
         dataset.epochs_completed = 0
         launches_before = step_graph.kernel_launches(self._eval_step)
 
-        def process(sample, outputs, losses, metrics):
+        def process(idx, sample, outputs, losses, metrics):
             """Aggregates, formats, and saves one sample's results."""
             nonlocal num_evaluated
             num_objs = int(sample[C.SAMPLE_NUM_OBJS])
@@ -415,26 +440,25 @@ class Evaluator:
                 arr = np.asarray(value)[0:num_objs]
                 metric_values.setdefault(name, []).append(arr.ravel())
 
-            t0 = time.perf_counter()
-            pred_dict = predictions.format_predictions(
-                self.cfg, outputs, sample, dataset, self.eval_mode,
-                post_process_cen_x=self.post_process_cen_x)
-            t1 = time.perf_counter()
-            predictions.save_predictions(
-                pred_dict, sample[C.SAMPLE_NAME], output_dirs)
-            stages.add('format', t1 - t0)
-            stages.add('write', time.perf_counter() - t1)
+            with stages.span('eval.format', idx):
+                pred_dict = predictions.format_predictions(
+                    self.cfg, outputs, sample, dataset, self.eval_mode,
+                    post_process_cen_x=self.post_process_cen_x)
+            with stages.span('eval.write', idx):
+                predictions.save_predictions(
+                    pred_dict, sample[C.SAMPLE_NAME], output_dirs)
             num_evaluated += 1
             if num_evaluated == 1:
                 print('first sample saved at step {}'.format(global_step),
                       flush=True)
 
-        def process_group(samples, batched_out):
+        def process_group(group, batched_out):
             """Splits one group's host outputs (leading axis: the group's
-            samples, then its padding) into its real samples."""
+            samples, then its padding) into its real samples; ``group``
+            is (their dataset indices, their host samples)."""
             outputs, losses, metrics = batched_out
-            for i, sample in enumerate(samples):
-                process(sample, {k: v[i] for k, v in outputs.items()},
+            for i, (idx, sample) in enumerate(zip(*group)):
+                process(idx, sample, {k: v[i] for k, v in outputs.items()},
                         {k: v[i] for k, v in losses.items()},
                         {k: v[i] for k, v in metrics.items()})
 
@@ -444,61 +468,72 @@ class Evaluator:
             """``n`` groups whose spans from launch to host took ``dt`` s
             each on average."""
             infer_times.extend([dt / eval_batch] * (n * eval_batch))
-            stages.add('pull', dt * n, n * eval_batch)
 
         pipe = pipeline.BatchedPullPipeline(
             process_group, pull_batch=self.pull_batch,
-            on_pull_time=pulled) if is_main else None
+            on_pull_time=pulled, times=stages) if is_main else None
 
         num_groups = 0
         share = eval_batch // world
 
-        def dispatch_group(host_rows, device_rows):
-            """One group's step on this rank's rows (padded to its share
-            by repeating its last row); rank 0 hands the gathered rows to
-            the pipeline with the group's host samples."""
+        def dispatch_group(number, group, host_rows, device_rows):
+            """Group ``number``'s step on this rank's rows (padded to its
+            share by repeating its last row); rank 0 hands the gathered
+            rows to the pipeline with the group's dataset indices
+            (``group``) and host samples."""
             nonlocal num_groups
-            t0 = time.perf_counter()
-            padded = device_rows + [device_rows[-1]] * (share -
-                                                        len(device_rows))
-            batch = stack_samples(padded)
-            group_samples = _gather_host_samples(host_rows)
-            # Pad rows ride along (no extra dispatches); process_group
-            # only iterates the real samples. Per-box outputs are
-            # truncated on the device to the group's slot bucket.
-            bucket = self._slot_bucket(group_samples)
-            start = pipeline.mark(self.device) if is_main else None
-            out = self._eval_step(batch, bucket)
-            if world > 1:
-                out = _gather_outputs(out)
+            with stages.span('eval.dispatch', number, len(host_rows)):
+                with stages.span('eval.stack', number):
+                    padded = device_rows + [device_rows[-1]] * (
+                        share - len(device_rows))
+                    batch = stack_samples(padded)
+                group_samples = _gather_host_samples(host_rows)
+                # Pad rows ride along (no extra dispatches); process_group
+                # only iterates the real samples. Per-box outputs are
+                # truncated on the device to the group's slot bucket.
+                bucket = self._slot_bucket(group_samples)
+                start = pipeline.mark(self.device) if is_main else None
+                out = self._eval_step(batch, bucket)
+                if world > 1:
+                    out = _gather_outputs(out)
+                if is_main:
+                    pipe.start_pull((group, group_samples), out, start,
+                                    number)
             if is_main:
-                pipe.add(group_samples, out, start)
-            stages.add('dispatch', time.perf_counter() - t0, len(host_rows))
+                pipe.hand_over()
+                stages.count('eval.frames', len(group_samples))
+            stages.count('eval.groups')
+            stages.count('eval.pad_rows', share - len(host_rows))
+            stages.count('eval.bytes_up', sum(
+                v.nbytes for v in batch.values()
+                if isinstance(v, np.ndarray)))
             num_groups += 1
 
         # Ordered producer pool: sample assembly (KITTI IO, MSCNN merge,
         # resize, encode) overlaps the device's steps and the pipeline
         # worker's formatting.
         def assemble(idx):
-            t0 = time.time()
-            sample = dataset.get_sample_dict([idx])[0]
-            if sample is None:
-                raise RuntimeError('sample {} keeps an object by its labels '
-                                   'and yields none'.format(
-                                       dataset.sample_list[idx].name))
-            device_sample = trainer_lib.prepare_sample(
-                sample, self.cfg.image_input_shape)
-            if self.eval_mode == 'test':
-                # Inference needs no GT arrays on the device
-                device_sample = monopsr.strip_to_net_inputs(device_sample)
-            seconds = time.time() - t0
-            feed_times.append(seconds)
-            stages.add('assembly', seconds)
+            with stages.span('eval.assembly', idx) as span:
+                with stages.span('eval.assembly.read', idx):
+                    sample = dataset.get_sample_dict([idx])[0]
+                if sample is None:
+                    raise RuntimeError(
+                        'sample {} keeps an object by its labels and yields '
+                        'none'.format(dataset.sample_list[idx].name))
+                with stages.span('eval.assembly.prepare', idx):
+                    device_sample = trainer_lib.prepare_sample(
+                        sample, self.cfg.image_input_shape)
+                    if self.eval_mode == 'test':
+                        # Inference needs no GT arrays on the device
+                        device_sample = monopsr.strip_to_net_inputs(
+                            device_sample)
+            feed_times.append(span.seconds)
             return sample, device_sample
 
         # This rank's rows of each group; a rank with no row in a tail
         # group assembles the group's last sample for its pad rows
-        groups = self._dispatch_groups()
+        with stages.span('eval.groups', global_step):
+            groups = self._dispatch_groups()
         lo = dp_lib.rank() * share
         own = [group[lo:lo + share] for group in groups]
         todo = [idx for group, rows in zip(groups, own)
@@ -506,14 +541,18 @@ class Evaluator:
         items = prefetch.ordered_prefetch(assemble, todo,
                                           num_threads=self.producer_threads)
         try:
-            for group, rows in zip(groups, own):
-                assembled = [next(items) for _ in (rows or group[-1:])]
-                dispatch_group([sample for sample, _ in assembled[:len(rows)]],
-                               [device for _, device in assembled])
+            for number, (group, rows) in enumerate(zip(groups, own)):
+                with stages.span('eval.feed_wait', number):
+                    assembled = [next(items) for _ in (rows or group[-1:])]
+                dispatch_group(
+                    number, group,
+                    [sample for sample, _ in assembled[:len(rows)]],
+                    [device for _, device in assembled])
         finally:
-            items.close()
-            if pipe is not None:
-                pipe.close()
+            with stages.span('eval.drain', global_step):
+                items.close()
+                if pipe is not None:
+                    pipe.close()
         if not num_groups:
             raise RuntimeError('Dataset produced no valid samples')
 
@@ -550,9 +589,10 @@ class Evaluator:
                             for name, vals in metric_values.items()}
             metrics_dir = os.path.join(self.config.exp_output_dir,
                                        'metrics')
-            kitti_writers.save_metrics(
-                metrics_dir, global_step, dataset.data_split,
-                metrics_flat)
+            with stages.span('eval.metrics_csv', global_step):
+                kitti_writers.save_metrics(
+                    metrics_dir, global_step, dataset.data_split,
+                    metrics_flat)
             results['metrics'] = {
                 name: float(np.mean(v[np.isfinite(v)]))
                 if np.isfinite(v).any() else float('nan')
@@ -584,6 +624,28 @@ class Evaluator:
                     continue
                 print('  {} ({}): {:.4f}'.format(name, stat, value))
 
+        with stages.span('eval.log', global_step):
+            self._log_results(results, metric_values, global_step)
+
+        # Convert to KITTI format + native AP eval
+        with stages.span('eval.kitti_files', global_step):
+            kitti_writers.save_predictions_box_3d_in_kitti_format(
+                self.score_threshold, dataset, self.config.pred_dir,
+                output_dirs[C.OUT_DIR_BOX_3D], output_dirs[C.OUT_DIR_BOX_2D],
+                global_step)
+
+        if self.do_kitti_native_eval and self.eval_mode == 'val':
+            self.run_kitti_native_eval(global_step)
+
+        if self.eval_mode == 'val':
+            results['metrics_per_box'] = metrics_flat
+        return results
+
+    def _log_results(self, results, metric_values, global_step):
+        """Appends ``results`` to ``logs/eval_<split>.jsonl`` and mirrors
+        the loss means and the ``metrics_to_show`` subset of
+        ``metric_values`` to TensorBoard."""
+        dataset = self.dataset
         # Write eval scalar log
         log_path = os.path.join(self.config.logdir,
                                 'eval_{}.jsonl'.format(dataset.data_split))
@@ -613,25 +675,12 @@ class Evaluator:
         if tb_scalars:
             self._tb_writer().scalars(global_step, tb_scalars)
 
-        # Convert to KITTI format + native AP eval
-        kitti_writers.save_predictions_box_3d_in_kitti_format(
-            self.score_threshold, dataset, self.config.pred_dir,
-            output_dirs[C.OUT_DIR_BOX_3D], output_dirs[C.OUT_DIR_BOX_2D],
-            global_step)
-
-        if self.do_kitti_native_eval and self.eval_mode == 'val':
-            self.run_kitti_native_eval(global_step)
-
-        if self.eval_mode == 'val':
-            results['metrics_per_box'] = metrics_flat
-        return results
-
     def _report_graph(self, ranks):
         """Prints, once each, the graphed eval step's warm-up seconds and
         its capture seconds, after the pass that ran them (a pass of one
         group runs the warm-up call alone)."""
-        graphed = self._eval_step
-        if not isinstance(graphed, step_graph.GraphedEvalStep):
+        graphed = self._graphed
+        if graphed is None:
             return
         if 'warm-up' not in self._graph_reported and (
                 graphed.warm_up_seconds is not None):

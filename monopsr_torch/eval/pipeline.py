@@ -20,6 +20,7 @@ import time
 import torch
 
 from monopsr_torch import constants as C
+from monopsr_torch.utils import profiling
 
 
 def slot_bucket(samples, slot_buckets, num_boxes):
@@ -79,10 +80,10 @@ def _to_numpy(x):
     return x.numpy()
 
 
-def _first_tensor(tree):
+def _tensors(tree):
     found = []
     _map(lambda x: found.append(x) if torch.is_tensor(x) else None, tree)
-    return found[0] if found else None
+    return found
 
 
 class BatchedPullPipeline:
@@ -96,12 +97,16 @@ class BatchedPullPipeline:
         on_pull_time: optional callback(seconds_per_item, n), once per
             batch of n items: the mean over the batch of each item's span
             from ``start`` (see ``add``) to its outputs on the host.
+        times: the ``profiling.StageTimes`` its spans and counter go to;
+            its own by default.
     """
 
-    def __init__(self, process_fn, pull_batch=8, on_pull_time=None):
+    def __init__(self, process_fn, pull_batch=8, on_pull_time=None,
+                 times=None):
         self._process_fn = process_fn
         self._pull_batch = max(int(pull_batch), 1)
         self._on_pull_time = on_pull_time
+        self.times = profiling.StageTimes() if times is None else times
         self._queue = queue_lib.Queue(maxsize=2)
         self._errors = []
         self._pending = []
@@ -114,11 +119,13 @@ class BatchedPullPipeline:
             if batch is None:
                 return
             try:
-                spans = [_seconds_between(start, end)
-                         for _, _, start, end in batch]
+                spans = []
+                for _, _, start, end, item in batch:
+                    with self.times.span('eval.pull', item):
+                        spans.append(_seconds_between(start, end))
                 if self._on_pull_time is not None:
                     self._on_pull_time(sum(spans) / len(batch), len(batch))
-                for sample, host_out, _, _ in batch:
+                for sample, host_out, _, _, _ in batch:
                     self._process_fn(sample, _map(_to_numpy, host_out))
             except BaseException as exc:  # surfaced by close()
                 self._errors.append(exc)
@@ -134,20 +141,36 @@ class BatchedPullPipeline:
                 continue
         return False
 
-    def add(self, sample, step_out, start=None):
-        """Queues one dispatched (host sample, device outputs) pair and
-        starts the outputs' copies to the host. ``start`` is what
-        ``mark`` returned just before the step was launched (default:
-        now)."""
-        first = _first_tensor(step_out)
-        device = first.device if first is not None else 'cpu'
-        if start is None:
-            start = mark(device)
-        host_out = _map(_start_copy, step_out)
-        self._pending.append((sample, host_out, start, mark(device)))
+    def start_pull(self, sample, step_out, start=None, item=None):
+        """Starts the copies of one dispatched (host sample, device
+        outputs) pair's outputs to the host and holds the pair for the
+        worker. ``start`` is what ``mark`` returned just before the step
+        was launched (default: now); ``item`` names the pair in the
+        spans."""
+        with self.times.span('eval.pull_start', item):
+            tensors = _tensors(step_out)
+            device = tensors[0].device if tensors else 'cpu'
+            if start is None:
+                start = mark(device)
+            host_out = _map(_start_copy, step_out)
+            self._pending.append((sample, host_out, start, mark(device),
+                                  item))
+        self.times.count('eval.bytes_down', sum(
+            x.nbytes for x in tensors if x.device.type == 'cuda'))
+
+    def hand_over(self):
+        """Hands the held pairs to the worker once ``pull_batch`` of them
+        are held, waiting while its queue is full."""
         if len(self._pending) >= self._pull_batch:
-            self._safe_put(self._pending)
+            with self.times.span('eval.pull_queue_wait',
+                                 self._pending[-1][4]):
+                self._safe_put(self._pending)
             self._pending = []
+
+    def add(self, sample, step_out, start=None, item=None):
+        """``start_pull``, then ``hand_over``."""
+        self.start_pull(sample, step_out, start, item)
+        self.hand_over()
 
     def close(self):
         """Flushes, joins the worker, and re-raises any worker error."""

@@ -41,6 +41,10 @@ step's Python and its launches are paid once, at capture.
   (``weight_pointers``): a restore with ``assign=True``, a ``.to()`` or a
   replaced tensor raises instead of replaying stale weights.
 - A capture that fails raises; nothing falls back to the eager step.
+- Spans (``utils.profiling``, into ``times``, which the evaluator sets to
+  its pass's): 'graph.warm_up', 'graph.capture', and per call
+  'eval.upload' (pinning and the copies to the device),
+  'eval.weights_check' and 'eval.replay'.
 
 The side stream, the capture and the static input buffers are
 ``utils.cuda_graph.SideStreamGraph``'s, which the graphed train step
@@ -52,7 +56,6 @@ captured launch once, at capture. ``captured_launches`` holds those;
 """
 
 import itertools
-import time
 
 import numpy as np
 import torch
@@ -146,7 +149,7 @@ class GraphedEvalStep(cuda_graph.SideStreamGraph):
 
     Attributes (besides ``SideStreamGraph``'s):
         warm_up_seconds: host seconds of the first, eager call up to the
-            end of its device work; None before it.
+            end of its device work (its span); None before it.
         captured_launches: {kernel name: launches captured}, None before
             the capture.
         outputs: the graph's (packed outputs, losses, metrics) at full
@@ -166,33 +169,37 @@ class GraphedEvalStep(cuda_graph.SideStreamGraph):
     def __call__(self, batch, max_slots=None):
         # The batch's tensors, pinned, into the static input buffers on the
         # current stream
-        host = _host_tensors(batch)
-        inputs = self.static_inputs(cuda_graph.input_spec(host))
-        for key, value in host.items():
-            if value.device.type == 'cpu':
-                value = value.pin_memory()
-            inputs[key].copy_(value, non_blocking=True)
+        with self.times.span('eval.upload'):
+            host = _host_tensors(batch)
+            inputs = self.static_inputs(cuda_graph.input_spec(host))
+            for key, value in host.items():
+                if value.device.type == 'cpu':
+                    value = value.pin_memory()
+                inputs[key].copy_(value, non_blocking=True)
         if self.stream is None:
             return self._warm_up(max_slots)
         if self.graph is None:
             self._capture()
         else:
-            check_weights(self.net, self._pointers)
-        self.replay()
+            with self.times.span('eval.weights_check'):
+                check_weights(self.net, self._pointers)
+        with self.times.span('eval.replay'):
+            self.replay()
         return bucket_views(self.outputs, self.num_boxes, max_slots)
 
     def _warm_up(self, max_slots):
         """The first call, eagerly, on the side stream; its outputs are
         kept from reuse until the current stream's later work on them
         (the caller's copies) is done."""
-        t0 = time.perf_counter()
-        out = self.warm_up(lambda: self.eval_step(self.inputs, max_slots))
-        current = torch.cuda.current_stream(self.device)
-        for part in out:
-            for value in part.values():
-                value.record_stream(current)
-        self.stream.synchronize()
-        self.warm_up_seconds = time.perf_counter() - t0
+        with self.times.span('graph.warm_up') as span:
+            out = self.warm_up(
+                lambda: self.eval_step(self.inputs, max_slots))
+            current = torch.cuda.current_stream(self.device)
+            for part in out:
+                for value in part.values():
+                    value.record_stream(current)
+            self.stream.synchronize()
+        self.warm_up_seconds = span.seconds
         return out
 
     def _capture(self):

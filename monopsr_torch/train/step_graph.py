@@ -28,6 +28,11 @@ step's Python and its ~7,900 launches are paid once, at capture.
   at a logging step; a checkpoint reads the state after the replays on
   its stream.
 - A capture that fails raises; nothing falls back to eager steps.
+- Spans (``utils.profiling``, into ``times``), each with the dispatch's
+  number (from 1) as its item: 'train.dispatch', and within it
+  'graph.warm_up', 'train.stack', 'train.pin' and 'train.h2d' per input
+  (the upload), then per step 'train.row_copy', 'graph.capture' or 'train.replay'; the
+  counters 'train.steps' and 'train.bytes_up'.
 
 The side stream, the capture and the static input buffers are
 ``utils.cuda_graph.SideStreamGraph``'s, which the graphed eval step
@@ -51,53 +56,66 @@ class GraphedTrainStep(cuda_graph.SideStreamGraph):
 
     Attributes (besides ``SideStreamGraph``'s):
         losses: the graph's loss tensors, None before the capture.
+        dispatches: calls so far.
     """
 
     def __init__(self, train_step, device):
         super().__init__(device, 'train step')
         self.train_step = train_step
         self.losses = None
+        self.dispatches = 0
 
     def __call__(self, state, batches):
         """Takes one train step per batch of ``batches`` (stacked sample
         batches, as the loader gives them), in order. Returns (state,
         losses of the last step)."""
-        losses = None
-        if self.stream is None:
-            # The run's first step, eagerly, on the side stream the graph
-            # is captured on
-            state, losses = self.warm_up(
-                lambda: self.train_step(state, batches[0]))
-            batches = batches[1:]
-        if not batches:
-            return state, losses
-        staged = self._upload(batches)
-        for i in range(len(batches)):
-            with torch.no_grad():
-                for key, buffer in self.inputs.items():
-                    buffer.copy_(staged[key][i], non_blocking=True)
-            if self.graph is None:
-                # Captures one train step on the static inputs (the
-                # state's tensors and the buffers)
-                state, self.losses = self.capture(
-                    lambda: self.train_step(state, self.inputs))
-            else:
-                state.step += 1
-            self.replay()
+        self.dispatches += 1
+        number, times = self.dispatches, self.times
+        with times.span('train.dispatch', number):
+            times.count('train.steps', len(batches))
+            losses = None
+            if self.stream is None:
+                # The run's first step, eagerly, on the side stream the
+                # graph is captured on
+                with times.span('graph.warm_up', number):
+                    state, losses = self.warm_up(
+                        lambda: self.train_step(state, batches[0]))
+                batches = batches[1:]
+            if not batches:
+                return state, losses
+            staged = self._upload(batches)
+            for i in range(len(batches)):
+                with times.span('train.row_copy', number), torch.no_grad():
+                    for key, buffer in self.inputs.items():
+                        buffer.copy_(staged[key][i], non_blocking=True)
+                if self.graph is None:
+                    # Captures one train step on the static inputs (the
+                    # state's tensors and the buffers)
+                    state, self.losses = self.capture(
+                        lambda: self.train_step(state, self.inputs))
+                else:
+                    state.step += 1
+                with times.span('train.replay', number):
+                    self.replay()
         return state, self.losses
 
     def _upload(self, batches):
         """{key: (k, ...) device tensor} of the k batches, each input in
         one copy from pinned memory; allocates the static input buffers
         at the first call and checks every later batch against them."""
+        number, times = self.dispatches, self.times
         keys = [key for key, value in batches[0].items()
                 if isinstance(value, np.ndarray)]
         staged = {}
         for key in keys:
-            host = torch.from_numpy(np.ascontiguousarray(
-                np.stack([batch[key] for batch in batches])))
-            staged[key] = host.pin_memory().to(self.device,
-                                               non_blocking=True)
+            with times.span('train.stack', number):
+                host = torch.from_numpy(np.ascontiguousarray(
+                    np.stack([batch[key] for batch in batches])))
+            with times.span('train.pin', number):
+                host = host.pin_memory()
+            with times.span('train.h2d', number):
+                staged[key] = host.to(self.device, non_blocking=True)
+            times.count('train.bytes_up', host.nbytes)
         self.static_inputs({key: (tuple(value.shape[1:]), value.dtype)
                             for key, value in staged.items()})
         return staged

@@ -13,17 +13,19 @@ batch it was captured on).
   call builds what a capture may not (the kernels, cuDNN plans, the
   stream's cuBLAS workspaces, the step's kept constants).
 - ``capture(fn)`` captures ``fn()`` on that stream, after the current
-  stream's work, and times it. Capture runs nothing, so the caller
-  replays at once. A capture that fails raises.
+  stream's work, inside the span 'graph.capture' of ``times`` (a
+  ``utils.profiling.StageTimes``, which an owner may replace with its
+  own). Capture runs nothing, so the caller replays at once. A capture
+  that fails raises.
 - ``static_inputs(spec)`` allocates the buffers at its first call, from
   ``{key: (shape, dtype)}``, outside inference mode (so that later
   in-place copies into them are allowed), and raises ValueError on a
   later spec that differs.
 """
 
-import time
-
 import torch
+
+from monopsr_torch.utils import profiling
 
 
 def input_spec(tensors):
@@ -54,8 +56,10 @@ class SideStreamGraph:
         graph: the captured graph, None before the capture.
         inputs: {key: static device buffer}, None before ``static_inputs``.
         spec: {key: (shape, dtype)} of ``inputs``.
-        capture_seconds: host seconds of the capture, None before it.
+        capture_seconds: host seconds of the capture (its span), None
+            before it.
         replays: graph replays so far.
+        times: the ``profiling.StageTimes`` the spans go to.
     """
 
     def __init__(self, device, what):
@@ -73,6 +77,7 @@ class SideStreamGraph:
         self.spec = None
         self.capture_seconds = None
         self.replays = 0
+        self.times = profiling.StageTimes()
 
     def static_inputs(self, spec):
         """The static input buffers, allocated from ``spec`` at the first
@@ -102,10 +107,11 @@ class SideStreamGraph:
         ``torch.cuda.graph``); returns its outputs, the graph's tensors."""
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, stream=self.stream, **graph_kwargs):
-            out = fn()
-        self.capture_seconds = time.perf_counter() - t0
+        with self.times.span('graph.capture') as span:
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  **graph_kwargs):
+                out = fn()
+        self.capture_seconds = span.seconds
         self.graph = graph
         return out
 

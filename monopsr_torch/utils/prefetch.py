@@ -4,12 +4,10 @@ Counterpart of ``monopsr_tpu/utils/prefetch.py``. The evaluator's
 sample assembly (KITTI IO, MSCNN merge, resize, encode) is host work that
 can overlap the device's steps; ``ordered_prefetch`` runs N workers while
 keeping input order and bounding the items in flight (a full KITTI epoch
-must not buffer thousands of multi-MB samples). ``StageTimes`` adds up
-the seconds of each stage of the evaluator's pipeline, from its threads.
+must not buffer thousands of multi-MB samples).
 """
 
 import collections
-import threading
 from concurrent.futures import ThreadPoolExecutor
 
 
@@ -43,24 +41,3 @@ def ordered_prefetch(fn, iterable, num_threads=2, prefetch=8):
         finally:
             for fut in pending:
                 fut.cancel()
-
-
-class StageTimes:
-    """Thread-safe accumulator of per-stage wall seconds + counts."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._seconds = collections.defaultdict(float)
-        self._counts = collections.defaultdict(int)
-
-    def add(self, stage, seconds, n=1):
-        with self._lock:
-            self._seconds[stage] += seconds
-            self._counts[stage] += n
-
-    def per_item_ms(self):
-        """{stage: avg milliseconds per counted item}."""
-        with self._lock:
-            return {stage: 1000.0 * self._seconds[stage] /
-                    max(self._counts[stage], 1)
-                    for stage in self._seconds}

@@ -1,10 +1,28 @@
-"""Tracing, step timing and the measurements of the card.
+"""The program's spans and counters, its traces, and the measurements of
+the card.
 
 Counterpart of ``monopsr_tpu/utils/profiling.py``: the reference's
 observability is wall-clock step timing and GPU memory summaries; here
-the equivalents are ``torch.profiler`` traces (a Chrome trace, viewable
-in Perfetto or chrome://tracing), a simple step timer and the caching
-allocator's statistics per card.
+the equivalents are the program's own spans (``StageTimes``),
+``torch.profiler`` traces (a Chrome trace, viewable in Perfetto or
+chrome://tracing, with the program's spans beside the kernels) and the
+caching allocator's statistics per card.
+
+Spans and counters (``StageTimes``):
+
+- Totals are always kept: each span adds its seconds and a count to its
+  owner's ``StageTimes`` (the evaluator keeps one per pass), each
+  ``count`` adds to a counter, from any thread.
+- Intervals are kept only while recording is on (``recording()``, which
+  ``trace`` turns on): every span closed in any thread of the process
+  then keeps its name, its thread, its parent (the innermost span open
+  on that thread when it opened), its ``item`` (the shared id of one
+  frame, group or dispatch) and its start and end in nanoseconds of the
+  wall clock (``time.time_ns``), the clock ``torch.profiler`` stamps its
+  events with (``profiler_start_ns`` gives its origin). They go into one
+  list per thread and are read out when the recording ends.
+- Off, a span costs two ``perf_counter`` reads, the lock of its totals
+  and one check of the switch; it keeps nothing.
 
 The bench (``experiments/bench.py``) and ``chip_smoke.py`` measure with
 the rest: ``time_cuda`` (CUDA events over a run of calls),
@@ -15,9 +33,13 @@ card), ``count_flops`` (the convolutions' and matmuls' FLOPs of one
 eager call) and ``spread`` (median and quartiles of repeated readings).
 """
 
+import collections
 import contextlib
+import itertools
+import json
 import os
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -36,12 +58,188 @@ KERNEL_GROUPS = (
 )
 
 
+Interval = collections.namedtuple(
+    'Interval', 'name item thread thread_name span parent start_ns end_ns')
+Interval.__doc__ = """One span closed while recording was on: its name and
+item, the native id and name of its thread, its own id and its parent's
+(None at the top of its thread), and its start and end
+(``time.time_ns``)."""
+
+# The recording that is on, or None (``recording``)
+_ACTIVE = None
+
+
+class Recording:
+    """The intervals of the spans closed while it is on, one list per
+    thread; ``intervals`` holds them all, by start, once it has ended."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._logs = []
+        self._ids = itertools.count()
+        self.intervals = None
+
+    def _thread(self):
+        """(this thread's stack of open span ids, its list of intervals)."""
+        local = self._local
+        try:
+            return local.stack, local.log
+        except AttributeError:
+            local.stack, local.log = [], []
+            with self._lock:
+                self._logs.append((threading.get_native_id(),
+                                   threading.current_thread().name,
+                                   local.log))
+            return local.stack, local.log
+
+    def _end(self):
+        with self._lock:
+            logs = list(self._logs)
+        self.intervals = sorted(
+            (Interval(name, item, tid, tname, span, parent, t0, t1)
+             for tid, tname, log in logs
+             for span, parent, name, item, t0, t1 in list(log)),
+            key=lambda iv: (iv.start_ns, iv.span))
+
+
+@contextlib.contextmanager
+def recording():
+    """Turns recording on for the block, in every thread of the process;
+    yields the ``Recording``, whose ``intervals`` are read out when the
+    block ends. Recordings do not nest."""
+    global _ACTIVE
+    if _ACTIVE is not None:
+        raise RuntimeError('a recording of the spans is on already')
+    rec = _ACTIVE = Recording()
+    try:
+        yield rec
+    finally:
+        _ACTIVE = None
+        rec._end()
+
+
+class _Span:
+    """A span of ``StageTimes.span``; ``seconds`` holds its length once it
+    has closed."""
+
+    __slots__ = ('_times', '_name', '_item', '_n', '_t0', '_rec', '_id',
+                 '_parent', '_w0', 'seconds')
+
+    def __init__(self, times, name, item, n):
+        self._times = times
+        self._name = name
+        self._item = item
+        self._n = n
+        self.seconds = None
+
+    def __enter__(self):
+        rec = self._rec = _ACTIVE
+        if rec is not None:
+            stack, _ = rec._thread()
+            self._parent = stack[-1] if stack else None
+            self._id = next(rec._ids)
+            stack.append(self._id)
+            self._w0 = time.time_ns()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self._t0
+        self._times.add(self._name, self.seconds, self._n)
+        rec = self._rec
+        if rec is not None:
+            end = time.time_ns()
+            stack, log = rec._thread()
+            stack.pop()
+            log.append((self._id, self._parent, self._name, self._item,
+                        self._w0, end))
+        return False
+
+
+class StageTimes:
+    """Thread-safe totals of named spans (seconds and counts) and of
+    counters, the program's recorder.
+
+    ``prefix`` is the owner's own: ``per_item_ms`` gives the spans whose
+    names start with it without it (the evaluator's 'eval.assembly' as
+    'assembly').
+    """
+
+    def __init__(self, prefix=''):
+        self.prefix = prefix
+        self._lock = threading.Lock()
+        self._seconds = collections.defaultdict(float)
+        self._counts = collections.defaultdict(int)
+        self._counters = collections.defaultdict(int)
+
+    def add(self, stage, seconds, n=1):
+        with self._lock:
+            self._seconds[stage] += seconds
+            self._counts[stage] += n
+
+    def count(self, name, n=1):
+        """Adds ``n`` to counter ``name``."""
+        with self._lock:
+            self._counters[name] += n
+
+    def span(self, name, item=None, n=1):
+        """A context manager that adds its seconds and ``n`` to ``name``'s
+        totals, and keeps its interval while recording is on; ``item`` is
+        the shared id of what it works on (a dataset index, a group or
+        dispatch number)."""
+        return _Span(self, name, item, n)
+
+    def totals(self):
+        """({span: (seconds, count)}, {counter: value})."""
+        with self._lock:
+            return ({name: (self._seconds[name], self._counts[name])
+                     for name in self._seconds}, dict(self._counters))
+
+    def per_item_ms(self):
+        """{stage: avg milliseconds per counted item}, the owner's prefix
+        taken off its own spans' names."""
+        cut = len(self.prefix)
+        with self._lock:
+            return {(stage[cut:] if stage.startswith(self.prefix)
+                     else stage): 1000.0 * self._seconds[stage] /
+                    max(self._counts[stage], 1)
+                    for stage in self._seconds}
+
+
+def profiler_start_ns(prof):
+    """The ``time.time_ns`` instant at which the event times of
+    ``torch.profiler`` run ``prof`` (``evt.time_range``, microseconds)
+    start."""
+    return prof.profiler.kineto_results.trace_start_ns()
+
+
+def _chrome_events(intervals, base_ns):
+    """Chrome trace events of ``intervals``: one complete event ('X') per
+    span on its own thread, timestamps in microseconds from ``base_ns``,
+    and the name of each thread."""
+    pid = os.getpid()
+    events, threads = [], {}
+    for iv in intervals:
+        threads[iv.thread] = iv.thread_name
+        events.append({
+            'ph': 'X', 'cat': 'program', 'name': iv.name, 'pid': pid,
+            'tid': iv.thread, 'ts': (iv.start_ns - base_ns) / 1e3,
+            'dur': (iv.end_ns - iv.start_ns) / 1e3,
+            'args': {'item': iv.item, 'span': iv.span,
+                     'parent': iv.parent}})
+    events.extend({'ph': 'M', 'name': 'thread_name', 'pid': pid, 'tid': tid,
+                   'args': {'name': name}} for tid, name in threads.items())
+    return events
+
+
 @contextlib.contextmanager
 def trace(logdir, enabled=True, name='trace'):
-    """Captures a ``torch.profiler`` trace of the enclosed block and
-    writes it to ``<logdir>/<name>.json``. The host is traced always, the
-    cards once CUDA is initialized (their work is waited for at the end
-    of the block)."""
+    """Captures a ``torch.profiler`` trace of the enclosed block, with the
+    program's spans from every thread recorded meanwhile, and writes both
+    to ``<logdir>/<name>.json``. The host is traced always, the cards
+    once CUDA is initialized (their work is waited for at the end of the
+    block)."""
     if not enabled:
         yield
         return
@@ -50,35 +248,19 @@ def trace(logdir, enabled=True, name='trace'):
     activities = [ProfilerActivity.CPU]
     if cuda:
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with recording() as rec, profile(activities=activities) as prof:
         yield
         if cuda:
             torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, name + '.json'))
-
-
-class StepTimer:
-    """Rolling steps/sec + wall-time bookkeeping."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._start = time.time()
-        self._count = 0
-
-    def tick(self, n=1):
-        self._count += n
-
-    def rate(self):
-        elapsed = time.time() - self._start
-        return self._count / elapsed if elapsed > 0 else 0.0
-
-    def lap(self):
-        rate = self.rate()
-        self.reset()
-        return rate
+    path = os.path.join(logdir, name + '.json')
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        chrome = json.load(f)
+    chrome['traceEvents'].extend(_chrome_events(
+        rec.intervals, int(chrome.get('baseTimeNanoseconds', 0))))
+    with open(path, 'w') as f:
+        json.dump(chrome, f)
 
 
 def device_memory_stats():

@@ -33,6 +33,7 @@ flip between the packages; if one does not, the test fails.
 import copy
 import json
 import os
+import threading
 
 import cv2
 import jax
@@ -54,6 +55,7 @@ from monopsr_torch.experiments import (run_evaluation, run_inference,
                                        run_training)
 from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.train import trainer
+from monopsr_torch.utils import profiling
 
 from tests.test_torch_train_loop import (FIXTURE, REPO, _jax_initial_state,
                                          _port_state, _raw_config, tiny_yaml)
@@ -409,6 +411,93 @@ def test_restore_reads_the_eval_weights_only(runs):
     assert not torch.equal(saved['params'][key], saved['ema_params'][key])
     ev.net.load_state_dict(state.eval_variables(use_ema=True))
     assert torch.equal(net_state[key], saved['ema_params'][key])
+
+
+def _assert_same_record(got, want, where='record'):
+    assert sorted(got) == sorted(want), where
+    for key, value in want.items():
+        if isinstance(value, dict):
+            _assert_same_record(got[key], value, key)
+        else:
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+
+
+def test_recording_keeps_the_answers_and_names_every_group(
+        runs, monkeypatch, tmp_path):
+    """A val pass of the fixture's evaluator with the program's recording
+    off and one with it on: both write the fixture's files and return its
+    record, bit for bit, with the same span totals and counters. With it
+    on, each group has one 'eval.dispatch' on the dispatching thread, and
+    the producers' and the pipeline worker's spans come out with their
+    threads, parents and items."""
+    run = runs['val']
+    ev = run['pev']
+    kinds = ('box_3d', 'box_2d', 'xyz_map_local')
+    want_dirs = {kind: _pred_dirs(run, kind)[1] for kind in kinds}
+    state = ev.restore_checkpoint(
+        trainer.CheckpointManager(run['pconfig'].checkpoint_dir), STEP)
+    totals = []
+    for on in (False, True):
+        out = tmp_path / ('on' if on else 'off')
+        for key in ('pred_dir', 'logdir', 'exp_output_dir'):
+            monkeypatch.setattr(ev.config, key, str(out / key))
+        if on:
+            with profiling.recording() as rec:
+                result = ev.run_checkpoint_once(state, STEP)
+        else:
+            result = ev.run_checkpoint_once(state, STEP)
+        ev._close_tb()
+        _assert_same_record(result, run['pres'])
+        for kind, want_dir in want_dirs.items():
+            got_dir = os.path.join(str(out / 'pred_dir'), kind, 'val',
+                                   str(STEP))
+            names = sorted(os.listdir(want_dir))
+            assert names and sorted(os.listdir(got_dir)) == names, kind
+            for name in names:
+                with open(os.path.join(got_dir, name), 'rb') as g, \
+                        open(os.path.join(want_dir, name), 'rb') as w:
+                    assert g.read() == w.read(), (kind, name)
+        spans, counters = ev.stage_times.totals()
+        totals.append(({name: n for name, (_, n) in spans.items()},
+                       counters))
+    assert totals[0] == totals[1]
+    counters = totals[1][1]
+    groups = ev.kernel_launches['groups']
+    assert counters['eval.groups'] == groups
+    assert counters['eval.frames'] == result['num_samples']
+
+    main = threading.get_native_id()
+    by_name = {}
+    for iv in rec.intervals:
+        by_name.setdefault(iv.name, []).append(iv)
+        assert iv.start_ns <= iv.end_ns
+    dispatch = by_name['eval.dispatch']
+    assert sorted(iv.item for iv in dispatch) == list(range(groups))
+    assert {iv.thread for iv in dispatch} == {main}
+    spans = {iv.span: iv for iv in rec.intervals}
+    root, = by_name['eval.pass']
+    assert {spans[iv.parent].name for iv in dispatch} == {'eval.pass'}
+    for child, parent in (('eval.stack', 'eval.dispatch'),
+                          ('eval.pull_start', 'eval.dispatch'),
+                          ('eval.assembly.read', 'eval.assembly'),
+                          ('eval.assembly.prepare', 'eval.assembly')):
+        for iv in by_name[child]:
+            assert spans[iv.parent].name == parent, child
+            assert spans[iv.parent].item == iv.item, child
+    assembly = by_name['eval.assembly']
+    assert len(assembly) == result['num_samples']
+    assert {iv.item for iv in assembly} <= set(range(ev.dataset.num_samples))
+    assert {iv.thread for iv in assembly}.isdisjoint({main})
+    assert {iv.parent for iv in assembly} == {None}
+    worker = {iv.thread for iv in by_name['eval.format']}
+    assert len(worker) == 1 and worker.isdisjoint({main})
+    assert sorted(iv.item for iv in by_name['eval.format']) == sorted(
+        iv.item for iv in assembly)
+    assert len(by_name['eval.pull']) == groups
+    for name in ('eval.groups', 'eval.feed_wait', 'eval.drain',
+                 'eval.metrics_csv', 'eval.log', 'eval.kitti_files'):
+        assert by_name[name] and all(
+            spans[iv.parent] is root for iv in by_name[name]), name
 
 
 # --------------------------------------------------------------------------

@@ -83,6 +83,12 @@ NAME_REASONS = {
     'train/trainer.py:stack_samples':
         'eval/evaluator.py stack_samples, which the trainer and the '
         'evaluator share',
+    'utils/prefetch.py:StageTimes':
+        'utils/profiling.py StageTimes, the program\'s recorder of spans '
+        'and counters, of which the evaluator\'s stage totals are a part',
+    'utils/profiling.py:StepTimer':
+        'a rolling steps-per-second timer that nothing in the port read; '
+        'the graphed train step\'s spans (StageTimes) time its dispatches',
 }
 
 

@@ -1,6 +1,6 @@
 """The port's trainer observability hooks against the JAX package's:
 ``utils.summary_images`` (grids, 8-bit PNGs, the trainer's feature-map
-summaries) and ``utils.profiling`` (trace, StepTimer, device memory).
+summaries) and ``utils.profiling`` (trace, device memory).
 
 The grid must equal JAX's on the same array, and the port's PNG (written
 without cv2) must hold the pixels cv2 writes for JAX's grid. The tiny
@@ -110,21 +110,6 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(str(tmp_path / 'off'), enabled=False):
         pass
     assert not os.path.exists(tmp_path / 'off')
-
-
-def test_step_timer_behaves_as_jax(monkeypatch):
-    clock = [100.0]
-    monkeypatch.setattr(profiling.time, 'time', lambda: clock[0])
-    timers = (profiling.StepTimer(), jax_profiling.StepTimer())
-    assert [t.rate() for t in timers] == [0.0, 0.0]      # no time elapsed
-    for t in timers:
-        t.tick()
-        t.tick(4)
-    clock[0] += 2.0
-    assert [t.rate() for t in timers] == [2.5, 2.5]
-    assert [t.lap() for t in timers] == [2.5, 2.5]
-    clock[0] += 1.0
-    assert [t.rate() for t in timers] == [0.0, 0.0]      # reset by lap
 
 
 def test_device_memory_stats_on_the_cpu_as_jax():
