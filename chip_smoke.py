@@ -207,9 +207,10 @@ from monopsr_torch.eval import evaluator, native_eval, pipeline
 from monopsr_torch.eval import step_graph as eval_graph
 from monopsr_torch.experiments import flagship
 from monopsr_torch.models import monopsr
-from monopsr_torch.models.monopsr_net import NetConfig
+from monopsr_torch.models.monopsr_net import MonoPSRNet, NetConfig
 from monopsr_torch.ops import cuda_build
 from monopsr_torch.ops import emd as emd_ops
+from monopsr_torch.ops import multi_tensor_adam
 from monopsr_torch.parallel import data_parallel
 from monopsr_torch.tools import convert_tf_resnet, odapi_manifest
 from monopsr_torch.train import optimizer as opt_lib
@@ -680,6 +681,11 @@ class GradientRecorder:
         self.grads.append({k: v.detach().cpu().clone()
                            for k, v in grads.items()})
         return self.tx.update(grads, state)
+
+    def apply(self, grads, state, params, ema=None, ema_decay=None):
+        self.grads.append({k: v.detach().cpu().clone()
+                           for k, v in grads.items()})
+        return self.tx.apply(grads, state, params, ema, ema_decay)
 
 
 def gradient_errors(got, want):
@@ -2592,6 +2598,10 @@ class ReplacedCount:
         state['count'] = state['count'].clone()
         return self.tx.update(grads, state)
 
+    def apply(self, grads, state, params, ema=None, ema_decay=None):
+        state['count'] = state['count'].clone()
+        return self.tx.apply(grads, state, params, ema, ema_decay)
+
 
 def state_leaves(state):
     """{name: tensor} of every tensor of a TrainState (parameters, EMA,
@@ -2880,6 +2890,357 @@ def steps_per_dispatch_phase(seed, card, loop_report):
     print('steps_per_dispatch: {:.1f} s'.format(seconds))
     return dict(equality=equality, loop=loop, profile=profile,
                 k1_launches=k1, seconds=seconds)
+
+
+# --------------------------------------------------------------------------
+# Phase 17(e): the train step's optimizer update, csrc/multi_tensor_adam.cu
+# --------------------------------------------------------------------------
+
+# Bytes per parameter the update must move: g read by the norm pass, then
+# g, p, mu, nu and ema read and p, mu, nu and ema written (float32 mu)
+FUSED_BYTES_PER_PARAMETER = 40
+# Where the update clips, the kernels' norm (float64 partials in chunk
+# order) and the twin's (torch's float32 sum) may differ by a few float32
+# ulps; mu scales with 1 / norm and nu with 1 / norm^2
+FUSED_RTOL, FUSED_ATOL = 1e-5, 1e-10
+# Gradient scales: under the clip at the production list (norm ~0.2) and
+# over it (norm ~10)
+UNDER_CLIP, OVER_CLIP = 2e-5, 1e-3
+
+# name -> (steps: (gradient scale, NaN planted), optimizer_mu_dtype,
+# notfinite_count at the start, must be bit for bit)
+FUSED_CASES = {
+    'under the clip': (((UNDER_CLIP, False),) * 3, None, 0, True),
+    'clipped': (((OVER_CLIP, False),) * 3, None, 0, False),
+    'NaN gradient': (((UNDER_CLIP, False), (UNDER_CLIP, True)), None, 0,
+                     True),
+    '51st non-finite in a row': (((UNDER_CLIP, True),), None, 50, False),
+    'mu bfloat16': (((UNDER_CLIP, False),) * 3, 'bfloat16', 0, True),
+}
+
+
+def parameter_shapes(cfg=None):
+    """{name: shape} of the net's own parameters (the production config's
+    by default), read from a net on the meta device."""
+    with torch.device('meta'):
+        net = MonoPSRNet(cfg or flagship.flagship_config())
+    return {name: tuple(p.shape) for name, p in net.named_parameters()}
+
+
+def fused_grads(shapes, seed, scale, nan=False):
+    """Seeded gradients of ``shapes`` on the card, N(0, scale^2); with
+    ``nan`` the first element of the first tensor is NaN."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    grads = {name: torch.randn(shape, generator=gen, device='cuda') * scale
+             for name, shape in shapes.items()}
+    if nan:
+        next(iter(grads.values())).view(-1)[0] = float('nan')
+    return grads
+
+
+def fused_sides(shapes, seed, mu_dtype=None, notfinite_count=0):
+    """Two equal sides [tx, optimizer state, params, ema, ema decay] of the
+    production optimizer (Adam under the exponential decay, clip 1.0,
+    apply-if-finite, EMA 0.9999) over seeded parameters of ``shapes`` on
+    the card."""
+    config = dict(TRAIN_CONFIG, optimizer_mu_dtype=mu_dtype)
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    params = {name: torch.randn(shape, generator=gen, device='cuda') * 0.05
+              for name, shape in shapes.items()}
+    sides = []
+    for _ in range(2):
+        tx, _, _, decay = opt_lib.build_optimizer(config)
+        own = {name: t.clone() for name, t in params.items()}
+        state = tx.init(own)
+        if notfinite_count:
+            state['notfinite_count'].fill_(notfinite_count)
+        sides.append([tx, state, own,
+                      {name: t.clone() for name, t in params.items()},
+                      decay])
+    return sides
+
+
+def fused_leaves(side):
+    """{name: tensor} of one side's parameters, EMA and optimizer state."""
+    _, state, params, ema, _ = side
+    out = {'params/' + n: t for n, t in params.items()}
+    out.update(('ema/' + n, t) for n, t in ema.items())
+    for key, value in state.items():
+        if isinstance(value, dict):
+            out.update(('opt/{}/{}'.format(key, n), t)
+                       for n, t in value.items())
+        else:
+            out['opt/' + key] = value
+    return out
+
+
+def fused_gap(got, want):
+    """(bit for bit equal, the worst leaf, its largest |got - want| beyond
+    FUSED_ATOL + FUSED_RTOL |want| as a share of |want|'s largest (<= 0
+    within the bound; a NaN where the other holds a number, or an integer
+    or bool leaf that differs, counts as inf))."""
+    equal, worst, worst_key = True, float('-inf'), None
+    for key, w in want.items():
+        g = got[key]
+        equal = equal and torch.equal(_bits(g), _bits(w))
+        if not w.is_floating_point():
+            excess = 0.0 if torch.equal(g, w) else float('inf')
+        else:
+            g, w = g.double(), w.double()
+            nan = torch.isnan(w)
+            if not torch.equal(torch.isnan(g), nan):
+                excess = float('inf')
+            else:
+                d = ((g - w).abs() - FUSED_ATOL - FUSED_RTOL * w.abs())
+                d = torch.where(nan, torch.full_like(d, -1.0), d)
+                scale = float(torch.nan_to_num(w.abs(), nan=0.0).max())
+                excess = float(d.max()) / (scale or 1.0)
+        if excess > worst:
+            worst, worst_key = excess, key
+    return equal, worst_key, worst
+
+
+def fused_against_plain(name, shapes, seed):
+    """Case ``name`` of FUSED_CASES on the card: each step's gradients
+    through ``Optimizer.apply`` (the kernels) on one side and
+    ``apply_plain`` (the foreach twin) on the other. Returns a dict: bit
+    for bit, the worst leaf beyond the clipped case's bound, both sides'
+    counters, the kernels' launches and ``train.fused_update`` counts,
+    and whether a skipped step kept parameters and moments and moved the
+    EMA."""
+    steps, mu_dtype, notfinite, _ = FUSED_CASES[name]
+    sides = fused_sides(shapes, seed, mu_dtype, notfinite)
+    launches = multi_tensor_adam.adam_update.launches
+    kept = moved = None
+    for i, (scale, nan) in enumerate(steps):
+        grads = fused_grads(shapes, seed + 1 + i, scale, nan)
+        before = {k: v.clone() for k, v in fused_leaves(sides[0]).items()}
+        for side, apply in zip(sides, ('apply', 'apply_plain')):
+            tx, state, params, ema, decay = side
+            getattr(tx, apply)(grads, state, params, ema, decay)
+        if nan and not notfinite:
+            after = fused_leaves(sides[0])
+            kept = all(torch.equal(_bits(after[k]), _bits(v))
+                       for k, v in before.items()
+                       if k.startswith(('params/', 'opt/mu/', 'opt/nu/')))
+            moved = any(not torch.equal(after[k], v)
+                        for k, v in before.items() if k.startswith('ema/'))
+        del grads, before
+    torch.cuda.synchronize()
+    got, want = fused_leaves(sides[0]), fused_leaves(sides[1])
+    equal, worst_key, worst = fused_gap(got, want)
+    counters = [{k: int(leaves['opt/' + k]) for k in (
+        'count', 'notfinite_count', 'total_notfinite', 'last_finite')}
+        for leaves in (got, want)]
+    out = dict(bitwise_equal=equal, worst_leaf=worst_key,
+               worst_excess=worst, within_bound=worst <= 0.0,
+               counters=counters, kept=kept, moved=moved,
+               all_nan=bool(all(torch.isnan(t).all() for k, t in got.items()
+                                if k.startswith('params/'))),
+               launches=multi_tensor_adam.adam_update.launches - launches,
+               fused_updates=sides[0][0].times.totals()[1].get(
+                   'train.fused_update', 0))
+    del sides, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_case_failure(name, r):
+    """Why case ``name``'s result ``r`` fails, or None."""
+    steps, _, notfinite, bitwise = FUSED_CASES[name]
+    if bitwise and not r['bitwise_equal']:
+        return 'not bit for bit: worst leaf {} {:+.3e}'.format(
+            r['worst_leaf'], r['worst_excess'])
+    if not r['within_bound']:
+        return 'worst leaf {} {:+.3e} beyond rtol {} atol {}'.format(
+            r['worst_leaf'], r['worst_excess'], FUSED_RTOL, FUSED_ATOL)
+    if r['counters'][0] != r['counters'][1]:
+        return 'counters {} against the twin\'s {}'.format(*r['counters'])
+    if r['launches'] != 3 * len(steps) or r['fused_updates'] != len(steps):
+        return '{} launches and {} fused updates in {} steps'.format(
+            r['launches'], r['fused_updates'], len(steps))
+    if name == 'NaN gradient' and not (r['kept'] and r['moved']):
+        return 'the skipped step kept the state {}, moved the EMA {}'.format(
+            r['kept'], r['moved'])
+    if notfinite and not r['all_nan']:
+        return 'the 51st non-finite step was not applied'
+    return None
+
+
+def fused_graph_against_eager(shapes, seed, scale=OVER_CLIP, steps=3):
+    """``steps`` updates through ``Optimizer.apply`` eagerly on one side;
+    on the other the first eagerly on a side stream, then one captured in
+    a CUDA graph from static gradient buffers and replayed for each later
+    step. Returns a dict: bit for bit, the worst leaf, the launches
+    counted by Python at the warm-up and at capture, the replays."""
+    sides = fused_sides(shapes, seed)
+    grads = [fused_grads(shapes, seed + 1 + i, scale) for i in range(steps)]
+    tx, state, params, ema, decay = sides[0]
+    for g in grads:
+        tx.apply(g, state, params, ema, decay)
+    tx, state, params, ema, decay = sides[1]
+    static = {k: v.clone() for k, v in grads[0].items()}
+    launches = multi_tensor_adam.adam_update.launches
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        tx.apply(static, state, params, ema, decay)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tx.apply(static, state, params, ema, decay)
+    counted = multi_tensor_adam.adam_update.launches - launches
+    for g in grads[1:]:
+        for k, v in g.items():
+            static[k].copy_(v)
+        graph.replay()
+    torch.cuda.synchronize()
+    equal, worst_key, worst = fused_gap(fused_leaves(sides[1]),
+                                        fused_leaves(sides[0]))
+    del sides, grads, static, graph
+    torch.cuda.empty_cache()
+    return dict(bitwise_equal=equal, worst_leaf=worst_key,
+                worst_excess=worst, launches_counted=counted,
+                replays=steps - 1)
+
+
+def fused_timing(shapes, seed, reps=20, runs=5):
+    """Device ms of one update at ``shapes`` (clipped gradients), the
+    kernels' (``apply``) and the foreach twin's (``apply_plain``), each
+    captured in a CUDA graph after an eager call on a side stream (as the
+    graphed train step runs them) and timed by CUDA events over ``reps``
+    replays, ``runs`` times in turns. Returns ({apply: median}, {apply:
+    every run})."""
+    sides = fused_sides(shapes, seed)
+    grads = fused_grads(shapes, seed + 1, OVER_CLIP)
+    graphs = {}
+    for side, apply in zip(sides, ('apply', 'apply_plain')):
+        tx, state, params, ema, decay = side
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            getattr(tx, apply)(grads, state, params, ema, decay)
+        torch.cuda.current_stream().wait_stream(stream)
+        graphs[apply] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[apply]):
+            getattr(tx, apply)(grads, state, params, ema, decay)
+    times = {apply: [] for apply in graphs}
+    for _ in range(runs):
+        for apply, graph in graphs.items():
+            times[apply].append(time_cuda(graph.replay, reps, warmup=2))
+    del sides, grads, graphs
+    torch.cuda.empty_cache()
+    return {apply: float(np.median(ms)) for apply, ms in times.items()}, \
+        times
+
+
+def fused_dispatch_launches(seed):
+    """The production train step (bfloat16, batch TRAIN_BATCH, the
+    production loss) through ``GraphedTrainStep``: a dispatch of one batch
+    (the eager warm-up step), then one of GRAPH_K (the capture and
+    GRAPH_K - 1 replays). Returns the kernels' launches counted by Python
+    in the second dispatch (captured, counted once), its replays, the
+    ``train.fused_update`` count of each dispatch, the update count and
+    whether the last loss is finite."""
+    cfg = flagship.flagship_config()
+    batches = [flagship.synthetic_batch(seed + 70 + i, cfg, TRAIN_BATCH,
+                                        (375, 1242), C.DEPTH_PAD_SHAPE)
+               for i in range(1 + GRAPH_K)]
+    net = monopsr.create_net(cfg, device='cuda', seed=seed)
+    tx, _, use_ema, decay = opt_lib.build_optimizer(TRAIN_CONFIG)
+    step = trainer.make_train_step(net, cfg, LOSS_CONFIG, tx, use_ema, decay,
+                                   device='cuda')
+    state = trainer.create_train_state(net, tx, use_ema)
+    graphed = step_graph.GraphedTrainStep(step, 'cuda')
+    state, _ = graphed(state, batches[:1])
+    first = tx.times.totals()[1].get('train.fused_update', 0)
+    launches = multi_tensor_adam.adam_update.launches
+    state, losses = graphed(state, batches[1:])
+    torch.cuda.synchronize()
+    out = dict(captured=multi_tensor_adam.adam_update.launches - launches,
+               replays=graphed.replays,
+               fused_updates=[first, tx.times.totals()[1].get(
+                   'train.fused_update', 0) - first],
+               count=int(state.opt_state['count']),
+               finite=bool(torch.isfinite(losses['total_loss'])))
+    del net, state, step, graphed, tx
+    torch.cuda.empty_cache()
+    return out
+
+
+def fused_update_phase(seed, card, equality):
+    """Phase 17(e): the kernels of ``ops/multi_tensor_adam`` at the
+    production parameter list against the foreach twin (every case of
+    FUSED_CASES, and a captured update against eager ones), their time
+    against the bound of FUSED_BYTES_PER_PARAMETER at 3.35 TB/s and the
+    twin's time, the launches of one graphed dispatch of GRAPH_K
+    production steps, and phase 17(a)'s graph against eager steps
+    (``equality``), which run through the kernels."""
+    t0 = time.time()
+    shapes = parameter_shapes()
+    numels = [int(np.prod(s)) for s in shapes.values()]
+    n = sum(numels)
+    report = dict(parameters=n, tensors=len(shapes),
+                  chunks=len(multi_tensor_adam.chunk_table(numels)))
+    for name in FUSED_CASES:
+        r = fused_against_plain(name, shapes, seed)
+        report[name] = r
+        why = fused_case_failure(name, r)
+        print('fused update against the foreach twin, {} ({} tensors, {} '
+              'parameters, {}): {}; counters {}, {} launches{}'.format(
+                  name, len(shapes), n, card,
+                  'bit for bit' if r['bitwise_equal'] else
+                  'worst leaf {} {:+.3e} of its largest beyond the bound'
+                  .format(r['worst_leaf'], r['worst_excess']),
+                  r['counters'][0], r['launches'],
+                  '' if why is None else ' (FAILS: {})'.format(why)))
+        if why is not None:
+            fail('fused update, {}: {}'.format(name, why))
+    graph = fused_graph_against_eager(shapes, seed)
+    report['graph'] = graph
+    print('fused update, a captured update replayed against eager updates '
+          '({}): {}; {} launches counted at the warm-up and capture, {} '
+          'replays'.format(card, 'bit for bit' if graph['bitwise_equal']
+                           else 'worst leaf {} {:+.3e}'.format(
+                               graph['worst_leaf'], graph['worst_excess']),
+                           graph['launches_counted'], graph['replays']))
+    if not graph['bitwise_equal'] or graph['launches_counted'] != 6:
+        fail('fused update: graph against eager {}'.format(graph))
+    ms, runs = fused_timing(shapes, seed)
+    bound_ms = FUSED_BYTES_PER_PARAMETER * n / 3.35e12 * 1e3
+    report.update(ms=ms['apply'], plain_ms=ms['apply_plain'],
+                  ms_runs=runs, bound_ms=bound_ms,
+                  x_bound=ms['apply'] / bound_ms)
+    print('fused update device time, graphed ({}): {:.3f} ms (runs {}) '
+          'against its bound '
+          '{:.3f} ms ({} B x {} parameters at 3.35 TB/s: {:.2f}x), the '
+          'foreach twin {:.3f} ms (runs {})'.format(
+              card, ms['apply'], [round(x, 3) for x in runs['apply']],
+              bound_ms, FUSED_BYTES_PER_PARAMETER, n,
+              ms['apply'] / bound_ms, ms['apply_plain'],
+              [round(x, 3) for x in runs['apply_plain']]))
+    dispatch = fused_dispatch_launches(seed)
+    report['dispatch'] = dispatch
+    print('fused update in one graphed dispatch of {} production steps '
+          '(bfloat16, batch {}, {}): {} launches captured x {} replays = {} '
+          'launches; train.fused_update counted {} (warm-up dispatch) and {} '
+          '(capture); count {}'.format(
+              GRAPH_K, TRAIN_BATCH, card, dispatch['captured'],
+              dispatch['replays'], dispatch['captured'] * dispatch['replays'],
+              *dispatch['fused_updates'], dispatch['count']))
+    if (dispatch['captured'] != 3 or dispatch['replays'] != GRAPH_K or
+            dispatch['fused_updates'] != [1, 1] or
+            dispatch['count'] != 1 + GRAPH_K or not dispatch['finite']):
+        fail('fused update in a graphed dispatch: {}'.format(dispatch))
+    if equality is not None:
+        report['graph_equality'] = {
+            name: r['bitwise_equal'] for name, r in equality.items()}
+        print('phase 17(a), graph against eager train steps through the '
+              'fused update, bit for bit: {}'.format(
+                  report['graph_equality']))
+    report['seconds'] = time.time() - t0
+    print('fused update: {:.1f} s'.format(report['seconds']))
+    return report
 
 
 # --------------------------------------------------------------------------
@@ -3524,6 +3885,8 @@ def main():
                               pretrained_remat_phase, args.seed, card)
     graph_report = phase('17 steps_per_dispatch', steps_per_dispatch_phase,
                          args.seed, card, loop_report)
+    fused_report = phase('17e fused update', fused_update_phase, args.seed,
+                         card, graph_report['equality'])
     feed_report = phase('18 host feed', host_feed_phase, args.seed, card,
                         loop_report)
     bench_report = phase('19 bench', bench_phase, args.seed, card,
@@ -3615,6 +3978,28 @@ def main():
         'bound_by': bound2_by,
         'library_ms': None,
         'shape': [b2, n2, m2],
+    }, {
+        'name': 'multi_tensor_adam',
+        'route': 'cuda',
+        'source': 'monopsr_torch/csrc/multi_tensor_adam.cu',
+        'replaces': None,
+        'launches_graph': (fused_report['dispatch']['captured'] *
+                           fused_report['dispatch']['replays']),
+        'launches_graph_counted_as': (
+            'phase 17(e): {} launches captured x {} replays in one graphed '
+            'dispatch of {} production steps (3 a step: the norm pass, the '
+            'finalize, the update pass)'.format(
+                fused_report['dispatch']['captured'],
+                fused_report['dispatch']['replays'], GRAPH_K)),
+        'cases': {name: fused_report[name]['bitwise_equal']
+                  for name in FUSED_CASES},
+        'clipped_worst_excess': fused_report['clipped']['worst_excess'],
+        'ms': fused_report['ms'],
+        'plain_ms': fused_report['plain_ms'],
+        'bound_ms': fused_report['bound_ms'],
+        'bound_by': 'bytes',
+        'library_ms': None,
+        'shape': [fused_report['tensors'], fused_report['parameters']],
     }]
     print('eval step ms/step: val {:.3f} test {:.3f} (eval batch {}, {})'
           .format(report['val']['ms'], report['test']['ms'], EVAL_BATCH,
@@ -3632,6 +4017,7 @@ def main():
     print('accuracy gate, short: ' + json.dumps(gate_report))
     print('pretrained trunk and remat: ' + json.dumps(pretrained_report))
     print('steps_per_dispatch: ' + json.dumps(graph_report))
+    print('fused update: ' + json.dumps(fused_report))
     print('host feed: ' + json.dumps(feed_report))
     print('bench: ' + json.dumps(bench_report))
     print('eval graph: ' + json.dumps(eval_graph_report))

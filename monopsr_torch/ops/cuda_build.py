@@ -31,6 +31,7 @@ _BUILD_ROOT = os.path.join(os.path.dirname(_PACKAGE_DIR), 'build')
 SOURCES = {
     'emd_cost_fused': os.path.join('csrc', 'emd_cost_fused.cu'),
     'emd_loss': os.path.join('csrc', 'emd_loss.cu'),
+    'multi_tensor_adam': os.path.join('csrc', 'multi_tensor_adam.cu'),
 }
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',

@@ -12,16 +12,25 @@ as in the YAML:
                    'adam_optimizer': {'learning_rate_type': ...}},
      'optimizer_mu_dtype': None, 'skip_nonfinite_updates': True}
 
-The optimizer is functional in form, like an optax
-GradientTransformation: ``init(params)`` returns the state and
-``update(grads, state)`` returns (updates, state); params, grads and
-updates are {name: tensor} dicts. Unlike optax, ``update`` writes the
-new state into the tensors of the state it is given (``_foreach_*_``,
-``copy_``) and returns that same dict: a CUDA graph of the train step
-replays its kernels on the tensors it captured, so a state held in new
-tensors would never advance under replay. The arithmetic runs as
-``torch._foreach_*`` ops over all the tensors at once (a few launches
-per operation, not one per tensor).
+Two entries, every tensor updated in place (a CUDA graph of the train
+step replays its kernels on the tensors it captured, so a state held in
+new tensors would never advance under replay):
+
+- ``apply(grads, state, params, ema, ema_decay)``, the train step's:
+  the update, the parameter add and the EMA. Where it runs what:
+  - Adam on CUDA tensors: the hand-written kernels of
+    ``ops/multi_tensor_adam`` (``csrc/multi_tensor_adam.cu``), three
+    launches over every tensor; they take the tensors or raise, with no
+    fallback. Each such call counts ``train.fused_update`` in ``times``.
+  - CPU tensors, and momentum, RMSProp and SGD on any device: the plain
+    twin ``apply_plain``, ``update`` followed by ``torch._foreach_*`` ops
+    for the add and the EMA (a few launches per operation on a card).
+- ``update(grads, state)``, optax's functional form: returns (updates,
+  state) as a GradientTransformation does, the state written into the
+  tensors it is given; its arithmetic runs as ``torch._foreach_*`` ops
+  over all the tensors at once. The CPU parity tests hold it against
+  optax; the kernels equal it bit for bit for a given global norm (their
+  norm sums in another order).
 
 No step reads a number on the host. Whether the gradients are finite,
 their global norm, the update count, the learning rate and Adam's bias
@@ -56,7 +65,13 @@ apply-if-finite counters ``notfinite_count``, ``last_finite`` and
 import numpy as np
 import torch
 
+from monopsr_torch.ops import multi_tensor_adam
+from monopsr_torch.utils import profiling
+
 _INT32_MAX = 2 ** 31 - 1
+
+# Adam's constants (optax.adam's defaults)
+_B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 # Non-finite steps skipped in a row before one is applied all the same
 # (the JAX package builds masked_apply_if_finite with 50)
@@ -83,7 +98,9 @@ def build_learning_rate(opt_config):
     tensor) -> learning rate, a float32 scalar tensor on the count's
     device. 'constant' or 'exponential_decay': init * rate ** (count /
     steps), the exponent floored with ``staircase``, and init at count
-    <= 0 (optax.exponential_decay), each operation in float32."""
+    <= 0 (optax.exponential_decay), each operation in float32. The
+    function's ``kernel_args`` give its numbers to the kernels of
+    ``ops/multi_tensor_adam``, which compute it on the device."""
     lr_type = opt_config['learning_rate_type']
 
     def as_tensor(count):
@@ -92,7 +109,12 @@ def build_learning_rate(opt_config):
 
     if lr_type == 'constant':
         value = float(np.float32(opt_config['learning_rate']))
-        return lambda count: _f32(value, as_tensor(count))
+
+        def constant(count):
+            return _f32(value, as_tensor(count))
+        constant.kernel_args = dict(lr_type=0, lr=value, decay_steps=1.0,
+                                    decay_rate=1.0, staircase=0)
+        return constant
 
     if lr_type == 'exponential_decay':
         init = float(np.float32(opt_config['initial_learning_rate']))
@@ -108,6 +130,9 @@ def build_learning_rate(opt_config):
             if staircase:
                 p = torch.floor(p)
             return torch.where(count <= 0, init, init * torch.pow(rate, p))
+        exponential_decay.kernel_args = dict(
+            lr_type=1, lr=init, decay_steps=steps, decay_rate=rate,
+            staircase=int(staircase))
         return exponential_decay
 
     raise ValueError('Invalid learning rate type: ' + str(lr_type))
@@ -121,7 +146,10 @@ def _where(keep, value, otherwise):
 
 class Optimizer:
     """clip_by_global_norm (optional) -> one of adam / momentum / rmsprop /
-    sgd -> apply-if-finite (optional), as build_optimizer chains them."""
+    sgd -> apply-if-finite (optional), as build_optimizer chains them.
+
+    ``times``: the ``profiling.StageTimes`` that ``apply`` counts
+    ``train.fused_update`` in (an owner may replace it with its own)."""
 
     def __init__(self, opt_type, schedule, clip_norm=None, mu_dtype=None,
                  momentum=None, decay=0.9, eps=1.0, skip_nonfinite=True):
@@ -140,6 +168,9 @@ class Optimizer:
         self._mu_decay = stored_decay
         if mu_dtype not in (None, torch.float32) and stored_decay is not None:
             self._mu_decay = float(torch.tensor(stored_decay, dtype=mu_dtype))
+        self.times = profiling.StageTimes()
+        # the device tables that captured graphs of the kernels read
+        self._kept_tables = []
 
     def _moments(self):
         """State entries holding one tensor per parameter, with the dtype
@@ -196,18 +227,17 @@ class Optimizer:
                   for key in self._moments()}
 
         if self.opt_type == 'adam':
-            b1, b2, eps = 0.9, 0.999, 1e-8
             c = count_inc.float()
-            correct1 = 1.0 - torch.pow(b1, c)
-            correct2 = 1.0 - torch.pow(b2, c)
+            correct1 = 1.0 - torch.pow(_B1, c)
+            correct2 = 1.0 - torch.pow(_B2, c)
             mu = self._decay(moment['mu'], self._mu_decay, keep)
-            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - b1))
-            nu = self._decay(moment['nu'], b2, keep)
+            torch._foreach_add_(mu, torch._foreach_mul(g, 1 - _B1))
+            nu = self._decay(moment['nu'], _B2, keep)
             torch._foreach_add_(nu, torch._foreach_mul(
-                torch._foreach_mul(g, g), 1 - b2))
+                torch._foreach_mul(g, g), 1 - _B2))
             denom = torch._foreach_div(nu, correct2)
             torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, eps)
+            torch._foreach_add_(denom, _EPS)
             updates = torch._foreach_div(mu, correct1)
             torch._foreach_div_(updates, denom)
             torch._foreach_mul_(updates, neg_lr)
@@ -276,6 +306,54 @@ class Optimizer:
         updates = self._inner(g, state, names, count_inc, keep)
         state['count'].copy_(_where(keep, count_inc, state['count']))
         return dict(zip(names, updates)), state
+
+    def apply(self, grads, state, params, ema=None, ema_decay=None):
+        """The train step's update, in place: the optimizer ``state``, the
+        parameters ({name: tensor}, whose order the gradients follow)
+        and, with ``ema`` and ``ema_decay``, the EMA of the updated
+        parameters, e * decay + p * (1 - decay), also after a step the
+        optimizer skipped. Adam on CUDA tensors launches the kernels of
+        ``ops/multi_tensor_adam`` (or raises on a tensor they do not
+        take); anything else runs ``apply_plain``."""
+        names = list(params)
+        device = params[names[0]].device if names else None
+        if self.opt_type != 'adam' or device is None or \
+                device.type != 'cuda':
+            return self.apply_plain(grads, state, params, ema, ema_decay)
+        use_ema = ema is not None and ema_decay is not None
+        hyper = multi_tensor_adam.AdamHyper(
+            clip=self.clip_norm or 0.0,
+            skip_nonfinite=int(self.skip_nonfinite),
+            max_errors=_MAX_CONSECUTIVE_ERRORS,
+            b1=_B1, b2=_B2, mu_decay=self._mu_decay, nu_decay=_B2,
+            one_minus_b1=1 - _B1, one_minus_b2=1 - _B2, eps=_EPS,
+            ema_decay=ema_decay if use_ema else 0.0,
+            one_minus_ema=1.0 - ema_decay if use_ema else 0.0,
+            **self.schedule.kernel_args)
+        counters = ({k: state[k] for k in ('notfinite_count', 'last_finite',
+                                           'total_notfinite')}
+                    if self.skip_nonfinite else None)
+        multi_tensor_adam.adam_update(
+            [grads[n] for n in names], [params[n] for n in names],
+            [state['mu'][n] for n in names], [state['nu'][n] for n in names],
+            state['count'], hyper, self._kept_tables, counters=counters,
+            ema=[ema[n] for n in names] if use_ema else None)
+        self.times.count('train.fused_update')
+        return state
+
+    def apply_plain(self, grads, state, params, ema=None, ema_decay=None):
+        """``apply``'s plain twin on any device: ``update``, then the
+        parameter add and the EMA as ``torch._foreach_*`` ops."""
+        names = list(params)
+        updates, _ = self.update({n: grads[n] for n in names}, state)
+        tensors = [params[n] for n in names]
+        torch._foreach_add_(tensors, [updates[n] for n in names])
+        if ema is not None and ema_decay is not None:
+            averages = [ema[n] for n in names]
+            torch._foreach_mul_(averages, ema_decay)
+            torch._foreach_add_(averages, torch._foreach_mul(
+                tensors, 1.0 - ema_decay))
+        return state
 
 
 _TYPES = {'adam_optimizer': 'adam', 'momentum_optimizer': 'momentum',

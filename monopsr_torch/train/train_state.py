@@ -7,7 +7,10 @@ through ``monopsr_torch.weights``). ``apply_gradients`` updates them, the EMA
 and the optimizer state in place, where the JAX state returns new
 arrays: the net always holds the current weights, no second copy of
 them is made, and a CUDA graph of the train step advances the state it
-captured.
+captured. It hands the whole update to the optimizer's ``apply``: Adam
+on a CUDA device runs as the hand-written kernels of
+``ops/multi_tensor_adam`` (three launches over every tensor, the EMA
+included), anything else as ``torch._foreach_*`` ops (``apply_plain``).
 """
 
 import torch
@@ -44,15 +47,8 @@ class TrainState:
         parameters as e * decay + p * (1 - decay), also after a step the
         optimizer skipped as non-finite (as in the JAX state). The batch
         stats were updated by the train-mode forward."""
-        updates, _ = tx.update(grads, self.opt_state)
-        names = list(self.params)
-        params = [self.params[n] for n in names]
-        torch._foreach_add_(params, [updates[n] for n in names])
-        if self.ema_params is not None and ema_decay is not None:
-            ema = [self.ema_params[n] for n in names]
-            torch._foreach_mul_(ema, ema_decay)
-            torch._foreach_add_(ema, torch._foreach_mul(params,
-                                                        1.0 - ema_decay))
+        tx.apply(grads, self.opt_state, self.params, self.ema_params,
+                 ema_decay)
         self.step += 1
         return self
 

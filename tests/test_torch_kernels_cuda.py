@@ -304,3 +304,66 @@ def test_graphed_eval_step_matches_eager(mode):
     assert got['k1_captured'] == k1
     assert got['k1_python'] == k1 * (got['k1_eager'] + 2)
     assert got['k1_counted'] == k1 * (got['k1_eager'] + 1 + 6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['under the clip', 'clipped', 'NaN gradient',
+                                  '51st non-finite in a row', 'mu bfloat16'])
+def test_fused_update_matches_foreach_twin(case):
+    """The train step's update through the kernels of
+    ``ops/multi_tensor_adam`` (``Optimizer.apply``) against the foreach
+    twin (``apply_plain``) on CUDA tensors of the production net's own
+    parameter shapes, the production optimizer (Adam, clip 1.0,
+    apply-if-finite, EMA 0.9999), from one seeded state
+    (``chip_smoke.fused_against_plain``): bit for bit under the clip, on
+    a skipped NaN step (parameters and moments kept, EMA moved) and with
+    mu in bfloat16; where it clips within rtol 1e-5 (the global norm
+    sums in another order: mu scales with 1 / norm, nu with 1 / norm^2);
+    the 51st non-finite step in a row applied (every parameter NaN in
+    both); the counters as the twin's; three launches and one
+    ``train.fused_update`` a step."""
+    _cuda()
+    import chip_smoke
+    got = chip_smoke.fused_against_plain(case, chip_smoke.parameter_shapes(),
+                                         seed=5)
+    assert chip_smoke.fused_case_failure(case, got) is None, got
+
+
+@pytest.mark.cuda
+def test_fused_update_captured_matches_eager():
+    """A captured update replayed for two steps equals three eager updates
+    bit for bit (the norm is summed in a fixed order, wherever the
+    tensors lie); Python counts three launches at the warm-up and three
+    at capture."""
+    _cuda()
+    import chip_smoke
+    got = chip_smoke.fused_graph_against_eager(chip_smoke.parameter_shapes(),
+                                               seed=6)
+    assert got['bitwise_equal'], got
+    assert got['launches_counted'] == 6 and got['replays'] == 2
+
+
+@pytest.mark.cuda
+def test_fused_update_refuses_bad_tensors():
+    """A non-contiguous, float64 or CPU gradient raises before a launch."""
+    _cuda()
+    from monopsr_torch.ops import multi_tensor_adam
+    from monopsr_torch.train import optimizer
+    tx, _, _, decay = optimizer.build_optimizer(flagship.train_config())
+    params = {'w': torch.zeros(4, 6, device='cuda'),
+              'b': torch.zeros(6, device='cuda')}
+    state = tx.init(params)
+    ema = {k: v.clone() for k, v in params.items()}
+    good = {k: torch.ones_like(v) for k, v in params.items()}
+    before = multi_tensor_adam.adam_update.launches
+    for grads, error, match in (
+            (dict(good, w=torch.ones(6, 4, device='cuda').t()), ValueError,
+             'contiguous'),
+            (dict(good, b=good['b'].double()), TypeError, 'float32'),
+            (dict(good, b=good['b'].cpu()), ValueError, 'lies on')):
+        with pytest.raises(error, match=match):
+            tx.apply(grads, state, params, ema, decay)
+    assert multi_tensor_adam.adam_update.launches == before
+    tx.apply(good, state, params, ema, decay)
+    assert multi_tensor_adam.adam_update.launches == before + 3
+    assert int(state['count']) == 1

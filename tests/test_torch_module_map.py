@@ -112,6 +112,11 @@ PORT_ONLY = {
     'ops/cuda_build.py':
         'builds the hand-written CUDA kernels that stand for the Pallas '
         'kernels, and the host image library; Pallas compiles within XLA',
+    'ops/multi_tensor_adam.py':
+        'optax\'s clip_by_global_norm -> adam -> apply_if_finite chain and '
+        'the EMA (train/optimizer.py, train/train_state.py), which XLA '
+        'fuses into the jitted train step: the hand-written kernels that '
+        'run them as two passes on the card',
     'parallel/data_parallel.py':
         'one process per card in a process group, in place of the device '
         'mesh of parallel/mesh.py',
