@@ -20,6 +20,14 @@ step's Python and its ~7,900 launches are paid once, at capture.
   input to the device once from pinned memory, then copies each step's
   rows into the buffers on the stream, ahead of that step's replay. A
   batch of other keys, shapes or dtypes raises.
+- At most one dispatch ahead of the card. Once its upload is on the
+  stream, a dispatch waits for the previous dispatch's last replay to
+  end before it enqueues its own steps, so the host prepares the next
+  upload while the card runs the current dispatch. With the host free to
+  run ahead, an H100 replayed the production-width step with the 'emd'
+  loss in 42.8 ms at best and, in runs that started slow, in 45.3 ms for
+  most or all of a 51 s window; held to one dispatch ahead, in 42.45 ms,
+  with such slow starts rarer and shorter.
 - State. The graph reads and writes the train state's own tensors
   (``TrainState.apply_gradients`` and the optimizer update every tensor
   in place, with no host read); capture after a resume's restore, which
@@ -31,8 +39,13 @@ step's Python and its ~7,900 launches are paid once, at capture.
 - Spans (``utils.profiling``, into ``times``), each with the dispatch's
   number (from 1) as its item: 'train.dispatch', and within it
   'graph.warm_up', 'train.stack', 'train.pin' and 'train.h2d' per input
-  (the upload), then per step 'train.row_copy', 'graph.capture' or 'train.replay'; the
-  counters 'train.steps' and 'train.bytes_up'.
+  (the upload), 'train.wait' (for the previous dispatch), then per step
+  'train.row_copy', 'graph.capture' or 'train.replay'; the counters
+  'train.steps' and 'train.bytes_up'. The train step's own ``times``
+  (``trainer.make_train_step``) is replaced by ``times``, so its
+  counters ('train.emd_loss') land there too: the warm-up step counts
+  what it launched; the capture launches nothing and counts nothing,
+  and each replay counts what the captured step would have.
 
 The side stream, the capture and the static input buffers are
 ``utils.cuda_graph.SideStreamGraph``'s, which the graphed eval step
@@ -46,7 +59,7 @@ captured ones times ``replays``.
 import numpy as np
 import torch
 
-from monopsr_torch.utils import cuda_graph
+from monopsr_torch.utils import cuda_graph, profiling
 
 
 class GraphedTrainStep(cuda_graph.SideStreamGraph):
@@ -57,13 +70,21 @@ class GraphedTrainStep(cuda_graph.SideStreamGraph):
     Attributes (besides ``SideStreamGraph``'s):
         losses: the graph's loss tensors, None before the capture.
         dispatches: calls so far.
+        replayed_counts: {counter: n} that the train step counted while it
+            was captured, which each replay counts; None before the
+            capture.
+        last_replayed: a CUDA event recorded after the last dispatch's
+            replays, None before the first.
     """
 
     def __init__(self, train_step, device):
         super().__init__(device, 'train step')
         self.train_step = train_step
+        train_step.times = self.times
         self.losses = None
         self.dispatches = 0
+        self.replayed_counts = None
+        self.last_replayed = None
 
     def __call__(self, state, batches):
         """Takes one train step per batch of ``batches`` (stacked sample
@@ -84,19 +105,33 @@ class GraphedTrainStep(cuda_graph.SideStreamGraph):
             if not batches:
                 return state, losses
             staged = self._upload(batches)
+            if self.last_replayed is not None:
+                with times.span('train.wait', number):
+                    self.last_replayed.synchronize()
             for i in range(len(batches)):
                 with times.span('train.row_copy', number), torch.no_grad():
                     for key, buffer in self.inputs.items():
                         buffer.copy_(staged[key][i], non_blocking=True)
                 if self.graph is None:
                     # Captures one train step on the static inputs (the
-                    # state's tensors and the buffers)
-                    state, self.losses = self.capture(
-                        lambda: self.train_step(state, self.inputs))
+                    # state's tensors and the buffers); what it counts
+                    # is counted at each replay
+                    captured = profiling.StageTimes()
+                    self.train_step.times = captured
+                    try:
+                        state, self.losses = self.capture(
+                            lambda: self.train_step(state, self.inputs))
+                    finally:
+                        self.train_step.times = times
+                    self.replayed_counts = captured.totals()[1]
                 else:
                     state.step += 1
                 with times.span('train.replay', number):
                     self.replay()
+                for name, n in self.replayed_counts.items():
+                    times.count(name, n)
+            self.last_replayed = torch.cuda.Event()
+            self.last_replayed.record(torch.cuda.current_stream(self.device))
         return state, self.losses
 
     def _upload(self, batches):

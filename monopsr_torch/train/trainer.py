@@ -47,6 +47,7 @@ import torch
 from monopsr_torch import constants as C
 from monopsr_torch.eval import evaluator
 from monopsr_torch.models import monopsr
+from monopsr_torch.ops import emd as emd_ops
 from monopsr_torch.parallel import data_parallel as dp_lib
 from monopsr_torch.train import optimizer as opt_lib
 from monopsr_torch.train import pretrained, step_graph
@@ -130,6 +131,14 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
         gradients are averaged over the ranks before the optimizer clips
         them, so every rank applies the global batch's update, and
         ``losses`` stay this rank's means.
+
+        ``train_step.times`` is the ``profiling.StageTimes`` the step
+        counts ``train.emd_loss`` in: the launches of K2 that the
+        ``'emd'`` loss makes (``ops/emd.emd_distance.launches`` over the
+        step; one a step on a CUDA device, none on the CPU, whose plain
+        twin launches nothing). An owner may replace ``times`` with its
+        own: ``step_graph.GraphedTrainStep`` does, and counts at each
+        replay what its capture counted.
     """
     device = device_lib.resolve_device(device)
     net = net.to(device).train()
@@ -146,7 +155,11 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
         outputs = net(**monopsr.net_inputs_from_batch(batch))
         gt = monopsr.build_gt_dict(cfg, batch, outputs)
         outputs, gt = monopsr.add_global_outputs(cfg, batch, outputs, gt)
+        before = emd_ops.emd_distance.launches
         losses, totals = monopsr.compute_losses(cfg, loss_config, outputs, gt)
+        launched = emd_ops.emd_distance.launches - before
+        if launched:
+            train_step.times.count('train.emd_loss', launched)
         totals.mean().backward()
         grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
                  for name, p in state.params.items()}
@@ -157,6 +170,7 @@ def make_train_step(net, cfg, loss_config, tx, use_ema, ema_decay,
             p.grad = None
         return state, {k: v.detach().mean() for k, v in losses.items()}
 
+    train_step.times = profiling.StageTimes()
     return train_step
 
 
